@@ -1,0 +1,31 @@
+"""Point-set statistics used by robust estimation (mirror of
+``compv_tpu/math/stats.py``): Hartley normalization over masked point sets
+(compv_math_stats.cxx normalize2D_hartley)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["hartley_normalize"]
+
+_SQRT2 = float(np.sqrt(np.float32(2.0)))
+
+
+def hartley_normalize(pts_xy: torch.Tensor, mask: torch.Tensor):
+    """Translate the centroid to the origin and scale so the mean distance
+    is sqrt(2).
+
+    pts_xy (N, 2), mask (N,) -> (normalized (N,2), T (3,3) with
+    x_norm_h = T @ x_h)."""
+    m = mask.to(pts_xy.dtype)[:, None]
+    n = m.sum().clamp_min(1.0)
+    centroid = (pts_xy * m).sum(dim=0) / n
+    centered = (pts_xy - centroid) * m
+    dist = (centered ** 2).sum(dim=1).sqrt()
+    mean_dist = dist.sum() / n
+    s = _SQRT2 / mean_dist.clamp_min(1e-12)
+    zero, one = torch.zeros_like(s), torch.ones_like(s)
+    t = torch.stack([torch.stack([s, zero, -s * centroid[0]]),
+                     torch.stack([zero, s, -s * centroid[1]]),
+                     torch.stack([zero, zero, one])])
+    return centered * s, t
