@@ -5,24 +5,41 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each printing its lines before the last:
-  1. device and build: the card's name and power limit, the kernels' build;
+  1. device and build: the card's name and power limit, the three kernel
+     sources built in parallel (one nvcc each), their ptxas lines;
   2. kernel vs twin: the FAST kernel K1 against its plain PyTorch twin, by
      exact equality, on the 720p scene and its pyramid and on odd sizes;
-  3. goldens on the card: goldens/goldens.json's FAST tuples, homography
-     and md5 values, computed by the port on the GPU;
-  4. the slice: slam.frontend.match_pair on a 720x1282 scene paired with
-     its roll by (4, 7), at the full ORB/RANSAC configuration, with the
+  3. goldens on the card: goldens/goldens.json's FAST tuples, homography,
+     md5, Otsu, CCL-features and MSER values, computed by the port on the GPU;
+  4. the ORB slice: slam.frontend.match_pair on a 720x1282 scene paired
+     with its roll by (4, 7), at the full ORB/RANSAC configuration, with the
      kernel's launch count, geometric and determinism checks, and the same
      pair through the kernel's twins;
-  5. times: match_pair and the two-output K1 launch against its twin, as
-     medians of CUDA-event timings.
+  5. times of the ORB slice: match_pair and the two-output K1 launch against
+     its twin, as medians of CUDA-event timings;
+  6. CCL kernels vs twins: the labeler K2a / K2b and the row compactor K3
+     against their twins, exact, on bench.py's 1122x1182 text scene (its
+     binary at both connectivities, every level of its MSER ladder, its run
+     tables with and without overflow), a 1285x1285 random binary, a snake
+     and edge shapes; the text partition against scipy.ndimage.label;
+  7. the text-blob slice: features.ccl.ccl_features on the text binary and
+     features.mser.mser_detect on the text scene at full width, with launch
+     counts, scipy's component count, determinism, and the same calls
+     through the twins;
+  8. times of the text-blob slice (bench.py's ccl_label_text,
+     ccl_boxes_text and mser_text rows) and of K2a, K2b and K3 against
+     their twins, as medians of CUDA-event timings.
 
-Any failed check raises, and the script exits non-zero; so it does without a
-GPU, and outside a checkout of the repository. The last line of standard
-output is one JSON object: {"ok": true, "device": {...}}.
+The scenes come from bench.py's _images(), loaded by path (its module level
+imports numpy only). Any failed check raises, and the script exits
+non-zero; so it does without a GPU, and outside a checkout of the
+repository. The line before the last names the card and its power limit;
+the last line of standard output is one JSON object:
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 import importlib.util
@@ -37,8 +54,17 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "compv_tpu_torch/csrc/fast_kernel.cu"
-KERNEL_REPLACES = "compv_tpu/ops/pallas/fast_kernel.py:129"
+# (name in the kernels line, source, the Pallas function it replaces)
+KERNELS = {
+    "K1": ("fast_strengths_nms", "compv_tpu_torch/csrc/fast_kernel.cu",
+           "compv_tpu/ops/pallas/fast_kernel.py:129"),
+    "K2a": ("ccl_label", "compv_tpu_torch/csrc/ccl_kernel.cu",
+            "compv_tpu/ops/pallas/ccl_kernel.py:149"),
+    "K2b": ("ccl_label_seeded", "compv_tpu_torch/csrc/ccl_kernel.cu",
+            "compv_tpu/ops/pallas/ccl_kernel.py:171"),
+    "K3": ("compact_rows", "compv_tpu_torch/csrc/compact_kernel.cu",
+           "compv_tpu/ops/pallas/compact_kernel.py:47"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -52,19 +78,6 @@ def check(ok, what: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
-
-
-def scene_720p() -> np.ndarray:
-    """The 720x1282 gray scene of bench.py's frontend_pair_720p row: gradient,
-    checkerboard patch, sensor noise, from seed 0."""
-    h, w = 720, 1282
-    rs = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    base = 96 + 48 * np.sin(xx / 17.0) + 40 * np.cos(yy / 23.0)
-    ch = ((xx // 24).astype(int) + (yy // 24).astype(int)) % 2
-    base = np.where((xx > 300) & (xx < 1000) & (yy > 150) & (yy < 570),
-                    ch * 200.0 + 20, base)
-    return np.clip(base + rs.normal(0, 2.0, base.shape), 0, 255).astype(np.uint8)
 
 
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
@@ -85,19 +98,34 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def load_fixtures():
-    """tests/fixtures.py of this checkout (numpy only), loaded by path: a
-    package named ``tests`` elsewhere on sys.path would shadow it."""
+def load_by_path(name: str, rel: str):
+    """A numpy-only module of this checkout (tests/fixtures.py, bench.py),
+    loaded by path: a package named ``tests`` elsewhere on sys.path would
+    shadow it."""
     spec = importlib.util.spec_from_file_location(
-        "compv_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
+        name, os.path.join(ROOT, rel))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
+def load_fixtures():
+    return load_by_path("compv_fixtures", os.path.join("tests", "fixtures.py"))
+
+
+def scenes():
+    """bench.py's two scenes: the 720x1282 gray scene of frontend_pair_720p
+    (gradient, checkerboard patch, noise, seed 0) and the 1122-wide,
+    1182-tall text scene of ccl_label_text / ccl_boxes_text / mser_text
+    (glyph rows, antialias, sensor noise; its generator continues after
+    the 720p scene's noise)."""
+    return load_by_path("compv_bench", "bench.py")._images()
+
+
 def phase1_device_and_build():
     from compv_tpu_torch.device import require_cuda
-    from compv_tpu_torch.ops.kernels import _build, fast_kernel
+    from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
+                                             compact_kernel, fast_kernel)
 
     dev = require_cuda()
     smi = subprocess.run(
@@ -105,16 +133,20 @@ def phase1_device_and_build():
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     emit(card)
+    names = ("fast_kernel", "ccl_kernel", "compact_kernel")
     t0 = time.perf_counter()
-    lib_path = _build.build("fast_kernel")
-    fast_kernel._kernel_lib()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(_build.build, names)))
+    for module in (fast_kernel, ccl_kernel, compact_kernel):
+        module._kernel_lib()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text()
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name, path in paths.items()}
     emit({"phase": 1, "device": torch.cuda.get_device_name(dev), "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": round(build_s, 3), "library": lib_path.name,
-          "ptxas": ptxas})
+          "build_s": round(build_s, 3),
+          "libraries": [p.name for p in paths.values()], "ptxas": ptxas})
     return dev, card
 
 
@@ -220,10 +252,26 @@ def phase3_goldens(dev) -> None:
     q = np.round((hm / hm[2, 2]).astype(np.float64), 2) + 0.0
     check(hashlib.md5(q.tobytes()).hexdigest() == goldens["homography_hash_q2"],
           f"homography_hash_q2 of {hm.tolist()}")
+
+    # the text-blob goldens of scripts/make_goldens.py:92-101
+    from compv_tpu_torch.core.golden import ccl_summary, mser_summary
+    from compv_tpu_torch.features.ccl import CclConfig, ccl_features
+    from compv_tpu_torch.features.mser import MserConfig, mser_detect
+    from compv_tpu_torch.image.threshold import otsu_value, threshold_otsu
+
+    otsu = int(otsu_value(gray))
+    check(otsu == goldens["otsu_value"], f"otsu_value {otsu}")
+    ccl = ccl_summary(ccl_features(threshold_otsu(gray)[0],
+                                   CclConfig(max_components=2048)))
+    check(ccl == goldens["ccl_features_summary"], f"ccl_features_summary {ccl}")
+    mser = mser_summary(mser_detect(gray[:160, :224].contiguous(),
+                                    MserConfig(max_regions=64)))
+    check(mser == goldens["mser_summary"], f"mser_summary {mser}")
     emit({"phase": 3, "goldens": "met", "checked": [
         "fast9_thr20_nms1", "fast9_thr20_nms0", "fast12_thr40_nms1",
         "fast9_thr40_nms1", "md5_to_gray", "md5_scale_bilinear_299x401",
-        "homography_inliers", "homography_hash_q2"]})
+        "homography_inliers", "homography_hash_q2", "otsu_value",
+        "ccl_features_summary", "mser_summary"]})
 
 
 @contextlib.contextmanager
@@ -329,20 +377,284 @@ def phase5_times(dev, card: str, cfg, img1, img2):
     return kernel_ms, twin_ms
 
 
+# ---------------------------------------------------------------------------
+# the text-blob path: CCL labeler K2a / K2b, row compactor K3
+
+
+def oracle_labels(binary: np.ndarray, connectivity: int) -> np.ndarray:
+    """Min-flat-index labels from scipy.ndimage.label's partition."""
+    from scipy import ndimage
+
+    structure = np.ones((3, 3)) if connectivity == 8 else None
+    lab, n = ndimage.label(binary > 0, structure=structure)
+    out = np.full(binary.shape, -1, np.int32)
+    if n:
+        flat = np.arange(binary.size).reshape(binary.shape)
+        mins = np.asarray(ndimage.minimum(flat, lab, np.arange(1, n + 1)))
+        out[lab > 0] = mins.astype(np.int32)[lab[lab > 0] - 1]
+    return out
+
+
+def ladder(f: torch.Tensor, config):
+    """The (fg, init) pairs MSER's ladder gives K2b on ``f`` (dark mode):
+    one per changed level, each seeded by the previous level's labels as
+    the twin gives them."""
+    from compv_tpu_torch.features.mser import ladder_levels
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+
+    levels = ladder_levels(config)[2]
+    h, w = f.shape
+    idx = torch.arange(h * w, dtype=torch.int32, device=f.device).reshape(h, w)
+    lbl = torch.full((h, w), -1, dtype=torch.int32, device=f.device)
+    pairs = []
+    for t in levels:
+        fg = f <= t
+        if bool((fg != (lbl >= 0)).any()):
+            init = torch.where(lbl >= 0, lbl, idx)
+            pairs.append((fg, init))
+            lbl = ck.label_ref(fg, init, 8)
+    return pairs
+
+
+def run_tables(labels: torch.Tensor, k: int):
+    """(packed keys as i32, values, counts) as ccl_features_from_labels
+    hands them to K3."""
+    from compv_tpu_torch.features.ccl import run_records
+
+    keyu, val, counts = run_records(labels, k)
+    return keyu.to(torch.int32), val, counts
+
+
+def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
+    from compv_tpu_torch.features.mser import MserConfig
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    rs = np.random.default_rng(5)
+    text_bin = (text < 128).astype(np.uint8) * 255
+    snake = np.zeros((64, 200), np.uint8)
+    for r in range(0, 64, 4):
+        snake[r, :] = 1
+        if r + 4 < 64:
+            snake[r:r + 4, 199 if (r // 4) % 2 == 0 else 0] = 1
+    binaries = {
+        "text": text_bin,
+        "random_1285": rs.integers(0, 2, (1285, 1285), dtype=np.uint8) * 255,
+        "snake": snake, "all_bg": np.zeros((301, 257), np.uint8),
+        "all_fg": np.ones((301, 257), np.uint8), "1x1_fg": np.ones((1, 1),
+                                                                  np.uint8),
+        "1x1_bg": np.zeros((1, 1), np.uint8),
+        "1xN": (rs.random((1, 1122)) < 0.5).astype(np.uint8),
+        "Nx1": (rs.random((1182, 1)) < 0.5).astype(np.uint8),
+    }
+    cases = 0
+    for name, b in binaries.items():
+        t = torch.from_numpy(b).to(dev)
+        idx = torch.arange(b.size, dtype=torch.int32,
+                           device=dev).reshape(b.shape)
+        for conn in (4, 8):
+            # rounds enough for the twin's pointer stage on percolating
+            # random binaries; the kernel needs no such bound
+            want = ck.label_ref(t != 0, idx, conn, 1000)
+            got = ck.ccl_label(t, conn)
+            check(torch.equal(got, want), f"K2a != twin on {name}, "
+                  f"connectivity {conn}")
+            cases += 1
+    got = ck.ccl_label(torch.from_numpy(text_bin).to(dev), 8)
+    part = np.array_equal(got.cpu().numpy(), oracle_labels(text_bin, 8))
+    check(part, "K2a's text partition != scipy.ndimage.label's")
+
+    f = torch.from_numpy(text).to(dev)
+    pairs = ladder(f, MserConfig())
+    for fg, init in pairs:
+        want = ck.label_ref(fg, init, 8)
+        check(torch.equal(ck.ccl_label_seeded(fg, init, 8), want),
+              "K2b != twin on a level of the text ladder")
+
+    labels = ck.label_ref(torch.from_numpy(text_bin).to(dev) != 0,
+                          torch.arange(text.size, dtype=torch.int32,
+                                       device=dev).reshape(text.shape))
+    k3_cases = []
+    a, b, counts = run_tables(labels, 128)
+    half = int(cpk.compact_ref(a, b, counts, 8192)[2]) // 16   # chunks / 2
+    for k, cap8 in ((128, 8192), (128, max(half, 1)), (16, 8192)):
+        a, b, counts = run_tables(labels, k)
+        want = cpk.compact_ref(a, b, counts, cap8)
+        got = cpk.compact_rows(a, b, counts, cap8)
+        total, ok = int(want[2]), bool(want[3])
+        check(int(got[2]) == total and bool(got[3]) == ok,
+              f"K3 total/ok {int(got[2])}/{bool(got[3])} != twin "
+              f"{total}/{ok}")
+        defined = total if ok else (cap8 - k // 8) * 8
+        for g, w_ in zip(got[:2], want[:2]):
+            check(torch.equal(g[:defined], w_[:defined]),
+                  f"K3 != twin at K={k}, cap8={cap8}")
+        k3_cases.append({"K": k, "cap8": cap8, "ok": ok, "total": total,
+                         "max_count": int(counts.max())})
+    check(not k3_cases[1]["ok"], "the overflow case did not overflow")
+    check(k3_cases[2]["max_count"] > 16, "no row has more runs than K=16")
+    torch.cuda.synchronize()
+    emit({"phase": 6, "k2a_vs_twin": "exact", "k2a_cases": cases,
+          "text_partition_vs_scipy": "equal", "k2b_vs_twin": "exact",
+          "k2b_ladder_levels": len(pairs), "k3_vs_twin": "exact",
+          "k3_cases": k3_cases, "max_abs_err": 0})
+    return pairs, labels
+
+
+@contextlib.contextmanager
+def ccl_twins():
+    """Route labeling and compaction through the twins (this phase only)."""
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    saved = ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows
+
+    def label(binary, connectivity=8, max_iterations=64):
+        h, w = binary.shape
+        idx = torch.arange(h * w, dtype=torch.int32,
+                           device=binary.device).reshape(h, w)
+        return ck.label_ref(binary > 0, idx, connectivity, max_iterations)
+
+    def seeded(binary, init, connectivity=8, max_iterations=64):
+        return ck.label_ref(binary > 0, init, connectivity, max_iterations)
+
+    ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows = (
+        label, seeded, cpk.compact_ref)
+    try:
+        yield
+    finally:
+        ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows = saved
+
+
+def same(a, b, what: str) -> None:
+    for name, x, y in zip(a._fields, a, b):
+        check(torch.equal(x, y), f"{what} differs in {name}")
+
+
+def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
+    from scipy import ndimage
+
+    from compv_tpu_torch.core.golden import ccl_summary, mser_summary
+    from compv_tpu_torch.features import mser as mser_mod
+    from compv_tpu_torch.features.ccl import CclConfig, ccl_features
+    from compv_tpu_torch.features.mser import MserConfig, mser_detect
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    text_bin_np = (text < 128).astype(np.uint8) * 255
+    text_bin = torch.from_numpy(text_bin_np).to(dev)
+    img = torch.from_numpy(text).to(dev)
+    counts = {}
+
+    torch.cuda.synchronize()
+    ck.ccl_label.launches = cpk.compact_rows.launches = 0
+    res = ccl_features(text_bin, CclConfig())
+    torch.cuda.synchronize()
+    counts["K2a"], counts["K3"] = ck.ccl_label.launches, cpk.compact_rows.launches
+    check(counts["K2a"] == 1 and counts["K3"] == 1,
+          f"ccl_features launched K2a {counts['K2a']}x, K3 {counts['K3']}x")
+    _, n_scipy = ndimage.label(text_bin_np > 0, structure=np.ones((3, 3)))
+    num = int(res.num_components)
+    check(num == n_scipy, f"num_components {num} != scipy's {n_scipy}")
+    valid = res.valid.cpu().numpy()
+    area = res.area.cpu().numpy()
+    check(valid.sum() == min(num, 256) and (np.diff(area[valid]) <= 0).all(),
+          "CclResult rows not the top-256 by area")
+    same(res, ccl_features(text_bin, CclConfig()), "ccl_features repeat")
+    with ccl_twins():
+        twin = ccl_features(text_bin, CclConfig())
+    same(res, twin, "ccl_features kernel vs twin path")
+
+    cfg = MserConfig()
+    torch.cuda.synchronize()
+    ck.ccl_label_seeded.launches = 0
+    mres = mser_detect(img, cfg)
+    torch.cuda.synchronize()
+    counts["K2b"] = ck.ccl_label_seeded.launches
+    syncs = mser_mod.last_syncs
+    check(counts["K2b"] == n_levels,
+          f"K2b launches {counts['K2b']} != {n_levels} changed levels")
+    regions = int(mres.valid.sum())
+    check(regions > 0, "mser_detect found no region on the text scene")
+    same(mres, mser_detect(img, cfg), "mser_detect repeat")
+    with ccl_twins():
+        mtwin = mser_detect(img, cfg)
+    same(mres, mtwin, "mser_detect kernel vs twin path")
+    emit({"phase": 7, "ccl_features": "ok", "num_components": num,
+          "scipy_components": int(n_scipy), "ccl_summary": ccl_summary(res),
+          "mser_regions": regions, "overflowed": int(mres.overflowed),
+          "mser_summary": mser_summary(mres), "host_syncs": syncs,
+          "launches": counts,
+          "twin_path": "identical CclResult and MserResult"})
+    return text_bin, img, res.labels, counts
+
+
+def phase8_text_times(card: str, text_bin, img, labels, pairs):
+    from compv_tpu_torch.features.ccl import (CclConfig,
+                                              ccl_features_from_labels,
+                                              label_components)
+    from compv_tpu_torch.features.mser import MserConfig, mser_detect
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    rows = {
+        "ccl_label_text_ms": cuda_ms(lambda: label_components(text_bin),
+                                     reps=20, inner=10),
+        "ccl_boxes_text_ms": cuda_ms(
+            lambda: ccl_features_from_labels(labels, CclConfig()), reps=20),
+        "mser_text_ms": cuda_ms(lambda: mser_detect(img, MserConfig()),
+                                reps=5),
+    }
+    fg = text_bin != 0
+    idx = torch.arange(fg.numel(), dtype=torch.int32,
+                       device=fg.device).reshape(fg.shape)
+    a, b, counts = run_tables(labels, 128)
+
+    def seeded_all(label):
+        def run():
+            for f, init in pairs:
+                label(f, init)
+        return run
+
+    times = {
+        "K2a": (cuda_ms(lambda: ck.ccl_label(text_bin), reps=20, inner=10),
+                cuda_ms(lambda: ck.label_ref(fg, idx, 8), reps=5)),
+        "K2b": (cuda_ms(seeded_all(ck.ccl_label_seeded), reps=10) / len(pairs),
+                cuda_ms(seeded_all(ck.label_ref), reps=3) / len(pairs)),
+        "K3": (cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192), reps=20,
+                       inner=10),
+               cuda_ms(lambda: cpk.compact_ref(a, b, counts, 8192), reps=20)),
+    }
+    emit({"phase": 8, "card": card, **rows,
+          **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
+          **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
+          "k2b_per": "launch, mean over the text ladder's "
+                     f"{len(pairs)} changed levels",
+          "timing": "median of CUDA-event timings after warm-up"})
+    return times
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     dev, card = phase1_device_and_build()
-    scene = scene_720p()
+    scene, text = scenes()
     err = phase2_kernel_vs_twin(dev, scene)
     phase3_goldens(dev)
-    cfg, img1, img2, launches = phase4_slice(dev, scene)
+    cfg, img1, img2, k1_launches = phase4_slice(dev, scene)
     kernel_ms, twin_ms = phase5_times(dev, card, cfg, img1, img2)
+    pairs, labels = phase6_ccl_kernels_vs_twins(dev, text)
+    text_bin, img, labels, launches = phase7_text_slice(dev, text, len(pairs))
+    times = phase8_text_times(card, text_bin, img, labels, pairs)
+    launches["K1"] = k1_launches
+    times["K1"] = (kernel_ms, twin_ms)
+    errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0}
     emit({"kernels": [{
-        "name": "fast_strengths_nms", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": twin_ms}]})
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[kid], "max_abs_err": errs[kid],
+        "ms": times[kid][0], "plain_ms": times[kid][1]}
+        for kid, (name, source, replaces) in KERNELS.items()]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,252 @@
+"""Connected-component labeling: the Hopper kernel (``csrc/ccl_kernel.cu``)
+that replaces ``compv_tpu/ops/pallas/ccl_kernel.py:pallas_label`` (K2a) and
+``pallas_label_seeded`` (K2b), and its plain PyTorch twin.
+
+Contract of both: a (H, W) foreground mask and an i32 ``init`` map give a
+(H, W) i32 map holding, at each foreground pixel, the minimum of ``init``
+over the pixel's 4- or 8-connected component, and -1 at background. K2a is
+the case ``init = row * W + col``: each component is labelled by its
+minimum flat index. At each foreground pixel, ``init`` must be the flat
+index of a foreground pixel of the same component: its own, or the label
+it had at an earlier level of a nested ladder (MSER's use). The twin's
+pointer jumping reads labels as pixel addresses and relies on that; the
+kernel takes any i32 ``init``.
+
+The twin is the XLA solver the JAX package runs off the TPU
+(``compv_tpu/features/ccl.py:79-164``) op for op: segmented run-min sweeps
+(``_SWEEP_CAP`` of them), then gather-based pointer jumping when the sweeps
+have not converged. Both reach the unique fixed point above, so kernel and
+twin agree exactly; the twin raises where the pointer stage does not
+converge within ``max_iterations`` rounds instead of returning a partial
+labeling. The kernel is a union-find and always converges; it ignores
+``max_iterations``.
+
+Dispatch has no fallback: a CUDA tensor goes to the kernel (built at first
+use) or the call raises; a CPU tensor goes to the twin. ``launches`` on
+each wrapper counts its calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from compv_tpu_torch.ops.kernels import _build
+
+__all__ = ["ccl_label", "ccl_label_seeded", "label_ref"]
+
+_SWEEP_CAP = 12      # run-min sweep iterations of the twin's first stage
+_SENT = 1 << 30      # scan sentinel above every offset-inflated key
+
+_lib = None
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("ccl_kernel")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.compv_ccl_label.argtypes = [p, p, i, i, i, p]
+        lib.compv_ccl_label.restype = i
+        lib.compv_ccl_label_seeded.argtypes = [p, p, p, p, i, i, i, p]
+        lib.compv_ccl_label_seeded.restype = i
+        _lib = lib
+    return _lib
+
+
+# --------------------------------------------------------------- the twin
+
+def _shift(x: torch.Tensor, axis: int, step: int, fill) -> torch.Tensor:
+    """x moved by ``step`` (+1: toward higher indices) along ``axis``,
+    ``fill`` entering at the edge."""
+    pad = [0, 0, 0, 0]
+    pad[2 * (1 - axis) + (0 if step > 0 else 1)] = abs(step)
+    out = F.pad(x, pad, value=fill)
+    return out.narrow(axis, 0 if step > 0 else abs(step), x.shape[axis])
+
+
+def _run_min(lbl, fg, axis, big):
+    """Min over each maximal foreground run along ``axis``: cummin with
+    direction-matched monotone per-run offsets so background blocks
+    propagation. Requires n * (axis_len / 2 + 2) < 2^30."""
+    m = lbl.shape[0] * lbl.shape[1]
+    start = fg & ~_shift(fg, axis, 1, False)
+    b = torch.cumsum(start, dim=axis, dtype=torch.int32)
+    rmax = fg.shape[axis] // 2 + 2
+    offs_f = (rmax - b) * m
+    offs_b = b * m
+    a1 = torch.cummin(torch.where(fg, lbl + offs_f, _SENT),
+                      dim=axis).values - offs_f
+    a2 = torch.cummin(torch.where(fg, lbl + offs_b, _SENT).flip(axis),
+                      dim=axis).values.flip(axis) - offs_b
+    return torch.where(fg, torch.minimum(a1, a2), big)
+
+
+def _window(padded: torch.Tensor, dy: int, dx: int, h: int, w: int):
+    return padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+
+def _diag_min(lbl, fg, big):
+    h, w = lbl.shape
+    p = F.pad(lbl, (1, 1, 1, 1), value=_SENT)
+    mm = lbl
+    for dy, dx in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+        mm = torch.minimum(mm, _window(p, dy, dx, h, w))
+    return torch.where(fg, mm, big)
+
+
+def _sweep_stage(lbl, fg, connectivity, big, cap):
+    """Returns (labels, converged)."""
+    changed, i = True, 0
+    while changed and i < cap:
+        new = _diag_min(lbl, fg, big) if connectivity == 8 else lbl
+        new = _run_min(new, fg, 0, big)
+        new = _run_min(new, fg, 1, big)
+        changed = bool((new != lbl).any())
+        lbl, i = new, i + 1
+    return lbl, not changed
+
+
+def _neighbor_min(lbl, fg, connectivity, big):
+    h, w = lbl.shape
+    p = F.pad(lbl, (1, 1, 1, 1), value=_SENT)
+    offs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 8:
+        offs += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    m = lbl
+    for dy, dx in offs:
+        m = torch.minimum(m, _window(p, dy, dx, h, w))
+    return torch.where(fg, m, big)
+
+
+def _pointer_step(lbl, fg, connectivity, big):
+    h, w = lbl.shape
+    new = _neighbor_min(lbl, fg, connectivity, big)
+    flat = new.reshape(-1)
+    jumped = torch.where(flat < big, flat[flat.clamp(max=big - 1)], big)
+    jumped = torch.where(jumped < big, flat[jumped.clamp(max=big - 1)], jumped)
+    new = torch.minimum(new, jumped.reshape(h, w))
+    return torch.where(fg, new, big)
+
+
+def _pointer_stage(lbl, fg, connectivity, big, max_iterations):
+    for _ in range(max_iterations):
+        new = _pointer_step(lbl, fg, connectivity, big)
+        if not bool((new != lbl).any()):
+            return new
+        lbl = new
+    # the last allowed round may have been the one that converged
+    if bool((_pointer_step(lbl, fg, connectivity, big) != lbl).any()):
+        raise RuntimeError(f"CCL pointer jumping did not converge within "
+                           f"{max_iterations} rounds; raise max_iterations")
+    return lbl
+
+
+def label_ref(fg: torch.Tensor, init: torch.Tensor, connectivity: int = 8,
+              max_iterations: int = 64) -> torch.Tensor:
+    """The twin: (H, W) bool foreground + (H, W) i32 init -> (H, W) i32
+    minimum of init over each component, -1 at background."""
+    h, w = fg.shape
+    big = h * w
+    lbl = torch.where(fg, init, big)
+    # the run-min offset trick needs n * (axis/2 + 2) in i32
+    converged = False
+    if h * w * (max(h, w) // 2 + 2) < 2 ** 30:
+        lbl, converged = _sweep_stage(lbl, fg, connectivity, big, _SWEEP_CAP)
+    if not converged:
+        lbl = _pointer_stage(lbl, fg, connectivity, big, max_iterations)
+    return torch.where(fg, lbl, -1)
+
+
+def _flat_index(h: int, w: int, device) -> torch.Tensor:
+    return torch.arange(h * w, dtype=torch.int32, device=device).reshape(h, w)
+
+
+# ------------------------------------------------------------- the wrappers
+
+def _foreground(binary: torch.Tensor) -> torch.Tensor:
+    """(H, W) mask the kernel reads as bytes (non-zero = foreground): the
+    input itself when it is u8 or bool, else ``binary > 0``."""
+    if not isinstance(binary, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(binary).__name__}")
+    if binary.ndim != 2:
+        raise ValueError(f"expected a 2-D image, got {binary.ndim}-D")
+    if binary.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {binary.device}")
+    h, w = binary.shape
+    if h * w >= _SENT:
+        raise ValueError("image too large for i32 flat labels")
+    if binary.dtype in (torch.uint8, torch.bool):
+        return binary.contiguous()
+    return (binary > 0).contiguous()
+
+
+def _connectivity(connectivity: int) -> int:
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    return connectivity
+
+
+def _stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, entry: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+
+
+def ccl_label(binary: torch.Tensor, connectivity: int = 8,
+              max_iterations: int = 64) -> torch.Tensor:
+    """K2a: (H, W) mask (foreground where non-zero) -> (H, W) i32 labels,
+    the minimum flat index of each component, -1 at background."""
+    fg = _foreground(binary)
+    _connectivity(connectivity)
+    h, w = fg.shape
+    if fg.device.type == "cpu":
+        return label_ref(fg != 0, _flat_index(h, w, fg.device), connectivity,
+                         max_iterations)
+    out = torch.empty((h, w), dtype=torch.int32, device=fg.device)
+    if h * w == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(fg.device):
+        rc = lib.compv_ccl_label(fg.data_ptr(), out.data_ptr(), h, w,
+                                 connectivity, _stream_ptr(fg.device))
+    _raise_on(rc, "compv_ccl_label")
+    ccl_label.launches += 1
+    return out
+
+
+def ccl_label_seeded(binary: torch.Tensor, init: torch.Tensor,
+                     connectivity: int = 8, max_iterations: int = 64
+                     ) -> torch.Tensor:
+    """K2b: (H, W) mask + (H, W) i32 init -> (H, W) i32 minimum of init over
+    each component, -1 at background."""
+    fg = _foreground(binary)
+    _connectivity(connectivity)
+    h, w = fg.shape
+    if (not isinstance(init, torch.Tensor) or init.dtype != torch.int32
+            or tuple(init.shape) != (h, w) or init.device != fg.device):
+        raise ValueError(f"init must be an i32 tensor of shape {(h, w)} on "
+                         f"{fg.device}")
+    init = init.contiguous()
+    if fg.device.type == "cpu":
+        return label_ref(fg != 0, init, connectivity, max_iterations)
+    out = torch.empty((h, w), dtype=torch.int32, device=fg.device)
+    if h * w == 0:
+        return out
+    minv = torch.empty((h, w), dtype=torch.int32, device=fg.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(fg.device):
+        rc = lib.compv_ccl_label_seeded(
+            fg.data_ptr(), init.data_ptr(), out.data_ptr(), minv.data_ptr(),
+            h, w, connectivity, _stream_ptr(fg.device))
+    _raise_on(rc, "compv_ccl_label_seeded")
+    ccl_label_seeded.launches += 1
+    return out
+
+
+ccl_label.launches = 0
+ccl_label_seeded.launches = 0

@@ -1,0 +1,463 @@
+"""Port parity for the text-blob path's labeling and features: histogram,
+Otsu, the CCL labeler's twin (what a CPU tensor runs for K2a / K2b), run
+extraction, the compactor's twin (K3), ``ccl_features`` and
+``ccl_features_from_labels``, against ``compv_tpu`` on the same numpy
+inputs (its XLA branches: on the CPU the JAX package runs the sweep and
+pointer solver and the padded run sort, never its Pallas kernels).
+
+Tolerances: everything integer is exact, labels and ``num_components``
+always. ``CclResult`` rows are compared as sorted sets of rows, because
+the reference orders equal-area rows by an unstable sort; where the
+capacity does not cover every component, the rows above the C-th area
+are compared as a set and the count of rows at that area exactly.
+Centroids within 1e-6 relative: both render exact integer moments in f32.
+The kernels themselves are held against these twins on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+
+from compv_tpu.core import golden as jgolden
+from compv_tpu.features import ccl as jccl
+from compv_tpu.image import histogram as jhist
+from compv_tpu.image import threshold as jthr
+from compv_tpu_torch.core import golden
+from compv_tpu_torch.features import ccl
+from compv_tpu_torch.image import histogram, threshold
+from compv_tpu_torch.interop import (config_from_reference, result_from_numpy,
+                                     result_to_numpy)
+from compv_tpu_torch.ops.kernels import ccl_kernel, compact_kernel
+from tests.fixtures import make_test_image
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def goldens():
+    with open(os.path.join(_ROOT, "goldens", "goldens.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def blob_img():
+    img = np.zeros((64, 96), np.uint8)
+    img[5:15, 5:20] = 255
+    img[30:50, 40:60] = 255
+    img[60:63, 90:95] = 255
+    img[20, 70] = 255
+    return img
+
+
+def _snake(h=40, w=40):
+    """The boustrophedon snake of tests/test_ccl_mser_hog.py."""
+    img = np.zeros((h, w), np.uint8)
+    for r in range(0, h, 4):
+        img[r, :] = 255
+        if r + 4 < h:
+            img[r:r + 4, w - 1 if (r // 4) % 2 == 0 else 0] = 255
+    return img
+
+
+def _random_bin(seed, density, shape=(64, 80)):
+    return (np.random.default_rng(seed).random(shape) < density
+            ).astype(np.uint8)
+
+
+def _oracle_labels(img, connectivity):
+    """Min-flat-index labels from scipy's partition (independent of both)."""
+    structure = np.ones((3, 3)) if connectivity == 8 else None
+    lab, n = ndimage.label(img > 0, structure=structure)
+    out = np.full(img.shape, -1, np.int64)
+    if n:
+        flat = np.arange(img.size).reshape(img.shape)
+        mins = np.asarray(ndimage.minimum(flat, lab, np.arange(1, n + 1)))
+        out[lab > 0] = mins.astype(np.int64)[lab[lab > 0] - 1]
+    return out
+
+
+# ------------------------------------------------------- histogram / Otsu
+
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (3, 40, 61)])
+def test_histogram256_exact(shape):
+    img = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
+    got = histogram.histogram256(torch.from_numpy(img))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jhist.histogram256(
+                                      jnp.asarray(img))))
+
+
+def test_otsu_value_golden_and_reference(goldens):
+    gray = make_test_image()
+    got = threshold.otsu_value(torch.from_numpy(gray))
+    assert got.dtype == torch.int32
+    assert int(got) == goldens["otsu_value"] == int(
+        jthr.otsu_value(jnp.asarray(gray)))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_otsu_value_exact(seed):
+    rs = np.random.default_rng(seed)
+    shape = tuple(rs.integers(40, 400, 2))
+    img = np.clip(rs.normal(rs.uniform(60, 190), rs.uniform(10, 70), shape)
+                  + 60 * (rs.random(shape) < 0.3), 0, 255).astype(np.uint8)
+    assert int(threshold.otsu_value(torch.from_numpy(img))) == int(
+        jthr.otsu_value(jnp.asarray(img)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_threshold_otsu_and_global_exact(inverse):
+    gray = make_test_image()
+    b, t = threshold.threshold_otsu(torch.from_numpy(gray))
+    jb, jt = jthr.threshold_otsu(jnp.asarray(gray))
+    assert int(t) == int(jt)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    got = threshold.threshold_global(torch.from_numpy(gray), 100, 200, inverse)
+    want = jthr.threshold_global(jnp.asarray(gray), 100, 200, inverse)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------- labeling (twin)
+
+def _edge_shapes():
+    rs = np.random.default_rng(5)
+    return [np.zeros((9, 13), np.uint8), np.full((9, 13), 255, np.uint8),
+            np.full((1, 1), 255, np.uint8), np.zeros((1, 1), np.uint8),
+            (rs.random((1, 57)) < 0.5).astype(np.uint8) * 255,
+            (rs.random((57, 1)) < 0.5).astype(np.uint8) * 255]
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_label_components_exact_on_shapes(blob_img, connectivity):
+    for img in [blob_img, _snake(), _snake(24, 70)] + _edge_shapes():
+        got = ccl.label_components(torch.from_numpy(img), connectivity)
+        want = np.asarray(jccl.label_components(jnp.asarray(img),
+                                                connectivity))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _oracle_labels(img, connectivity))
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("density", [0.3, 0.5, 0.6])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_label_components_exact_on_random(seed, density, connectivity):
+    img = _random_bin(seed, density)
+    got = ccl.label_components(torch.from_numpy(img), connectivity).numpy()
+    want = np.asarray(jccl.label_components(jnp.asarray(img), connectivity))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle_labels(img, connectivity))
+
+
+def test_reference_nonconvergence_raises():
+    """Near the 4-connected percolation threshold the reference's pointer
+    stage can stop at its 64-round cap with labels that are not the fixed
+    point, and returns them (ROADMAP Queue 3). The twin raises at that cap
+    instead, and is right with more rounds."""
+    rs = np.random.default_rng(3)
+    rs.random((64, 80))
+    rs.random((64, 80))
+    img = (rs.random((64, 80)) < 0.6).astype(np.uint8)
+    oracle = _oracle_labels(img, 4)
+    want = np.asarray(jccl.label_components(jnp.asarray(img), 4))
+    assert not np.array_equal(want, oracle)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        ccl.label_components(torch.from_numpy(img), 4)
+    np.testing.assert_array_equal(
+        ccl.label_components(torch.from_numpy(img), 4, 256).numpy(), oracle)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("img_kind", ["random", "snake", "scene"])
+def test_label_components_seeded_exact(connectivity, img_kind):
+    """A nested ladder: each level seeded by the previous level's labels
+    (own flat index at new pixels), as MSER runs it."""
+    if img_kind == "scene":
+        gray = make_test_image()[:90, :120]
+    elif img_kind == "snake":
+        gray = np.where(_snake(40, 52) > 0, 10, 200).astype(np.uint8)
+    else:
+        gray = np.random.default_rng(4).integers(0, 256, (64, 80),
+                                                 dtype=np.uint8)
+    idx = np.arange(gray.size, dtype=np.int32).reshape(gray.shape)
+    prev = np.full(gray.shape, -1, np.int32)
+    for t in range(15, 256, 30):
+        fg = (gray <= t).astype(np.uint8)
+        init = np.where(prev >= 0, prev, idx).astype(np.int32)
+        want = np.asarray(jccl.label_components_seeded(
+            jnp.asarray(fg), jnp.asarray(init), connectivity))
+        got = ccl.label_components_seeded(torch.from_numpy(fg),
+                                          torch.from_numpy(init),
+                                          connectivity)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _oracle_labels(fg, connectivity))
+        prev = want
+
+
+def test_labeler_wrapper_checks():
+    img = torch.zeros((4, 5), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="connectivity"):
+        ccl_kernel.ccl_label(img, 6)
+    with pytest.raises(ValueError, match="init"):
+        ccl_kernel.ccl_label_seeded(img, torch.zeros((5, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="2-D"):
+        ccl_kernel.ccl_label(torch.zeros((2, 4, 5), dtype=torch.uint8))
+    # non-u8 input: foreground is > 0, as the reference's `binary > 0`
+    f = torch.tensor([[0.5, -1.0, 2.0]])
+    np.testing.assert_array_equal(ccl_kernel.ccl_label(f).numpy(),
+                                  [[0, -1, 2]])
+
+
+def test_twin_raises_only_without_convergence():
+    """The twin returns when the last allowed round converged, and raises
+    when another round would still change the labels."""
+    img = torch.from_numpy(_snake(40, 40) > 0)
+    idx = torch.arange(1600, dtype=torch.int32).reshape(40, 40)
+    big = 1600
+    lbl0 = torch.where(img, idx, big)
+    rounds = 0
+    lbl = lbl0
+    while True:
+        new = ccl_kernel._pointer_step(lbl, img, 8, big)
+        rounds += 1
+        if torch.equal(new, lbl):
+            break
+        lbl = new
+    changing = rounds - 1                    # rounds that changed labels
+    done = ccl_kernel._pointer_stage(lbl0, img, 8, big, changing)
+    assert torch.equal(done, lbl)
+    with pytest.raises(RuntimeError):
+        ccl_kernel._pointer_stage(lbl0, img, 8, big, changing - 1)
+
+
+# ------------------------------------------------------- runs and K3 twin
+
+@pytest.mark.parametrize("k", [3, 16, 128])
+def test_extract_runs_exact(k):
+    rs = np.random.default_rng(9)
+    img = (rs.random((48, 75)) < 0.45).astype(np.uint8)
+    lbl = jccl.label_components(jnp.asarray(img))
+    want = jccl.extract_runs(lbl, k)
+    got = ccl.extract_runs(torch.from_numpy(np.array(lbl)), k)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _compact_oracle(a, b, counts, cap8):
+    """numpy prefix sums and a row-by-row copy (later rows overwrite)."""
+    h, k = a.shape
+    nch = -(-np.minimum(counts, k) // 8)
+    off8 = np.cumsum(nch) - nch
+    total8 = int(nch.sum())
+    off8 = np.maximum(np.minimum(off8, cap8 - np.maximum(nch, 1)), 0)
+    oa = np.zeros(cap8 * 8, np.int32)
+    ob = np.zeros(cap8 * 8, np.int32)
+    for i in range(h):
+        n8 = int(nch[i]) * 8
+        oa[off8[i] * 8:off8[i] * 8 + n8] = a[i, :n8]
+        ob[off8[i] * 8:off8[i] * 8 + n8] = b[i, :n8]
+    return oa, ob, total8 * 8, total8 <= cap8
+
+
+@pytest.mark.parametrize("cap8", [400, 60, 7])
+def test_compact_twin_equals_prefix_sum_oracle(cap8):
+    rs = np.random.default_rng(2)
+    h, k = 50, 24
+    counts = rs.integers(0, 40, h).astype(np.int32)   # some beyond K
+    counts[[3, 17]] = 0
+    a = rs.integers(-2 ** 31, 2 ** 31, (h, k), dtype=np.int64).astype(np.int32)
+    b = rs.integers(0, 10 ** 6, (h, k)).astype(np.int32)
+    want = _compact_oracle(a, b, counts, cap8)
+    got = compact_kernel.compact_rows(torch.from_numpy(a), torch.from_numpy(b),
+                                      torch.from_numpy(counts), cap8)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert int(got[2]) == want[2] and bool(got[3]) == want[3]
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+
+
+def test_compact_twin_matches_reference_prefix():
+    """The reference's XLA-side offsets and total (compact_kernel.py:57-69)
+    give the same total and ok; slots before the total agree."""
+    rs = np.random.default_rng(6)
+    lbl = np.asarray(jccl.label_components(jnp.asarray(
+        (rs.random((40, 64)) < 0.5).astype(np.uint8))))
+    run_lbl, run_x0, run_x1, counts = ccl.extract_runs(torch.from_numpy(lbl),
+                                                       16)
+    oa, ob, total, ok = compact_kernel.compact_rows(run_lbl, run_x1, counts,
+                                                    512)
+    assert bool(ok)
+    want = _compact_oracle(run_lbl.numpy(), run_x1.numpy(), counts.numpy(),
+                           512)
+    assert int(total) == want[2]
+    np.testing.assert_array_equal(oa[:int(total)].numpy(), want[0][:want[2]])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        compact_kernel.compact_rows(run_lbl[:, :12], run_x1[:, :12], counts, 8)
+
+
+# ------------------------------------------------------- features
+
+def _rows(res):
+    v = np.asarray(res.valid if not hasattr(res.valid, "numpy")
+                   else res.valid.numpy())
+
+    def f(name):
+        x = getattr(res, name)
+        return np.asarray(x.numpy() if hasattr(x, "numpy") else x)[v]
+
+    ints = np.stack([f("area"), f("box_y0"), f("box_x0"), f("box_y1"),
+                     f("box_x1")], 1).astype(np.int64)
+    floats = np.stack([f("cx"), f("cy")], 1).astype(np.float64)
+    order = sorted(range(len(ints)), key=lambda i: (tuple(ints[i]),
+                                                    tuple(floats[i])))
+    return ints[order], floats[order]
+
+
+def _assert_same_result(got, want):
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    assert int(got.num_components) == int(want.num_components)
+    assert got.area.dtype == torch.int32 and got.cx.dtype == torch.float32
+    gv, wv = got.valid.numpy(), np.asarray(want.valid)
+    assert gv.sum() == wv.sum()
+    # descending areas; padding after the valid rows
+    areas = got.area.numpy()
+    assert (np.diff(areas[gv]) <= 0).all() and not gv[int(gv.sum()):].any()
+    c = len(gv)
+    if int(want.num_components) <= c:
+        gi, gf = _rows(got)
+        wi, wf = _rows(want)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gf, wf, rtol=1e-6)
+    else:
+        # capacity cut: rows above the C-th area as a set, ties counted
+        a_c = int(np.asarray(want.area)[wv].min())
+        assert int(areas[gv].min()) == a_c
+        gi, gf = _rows(got)
+        wi, wf = _rows(want)
+        np.testing.assert_array_equal(gi[gi[:, 0] > a_c], wi[wi[:, 0] > a_c])
+        np.testing.assert_allclose(gf[gi[:, 0] > a_c], wf[wi[:, 0] > a_c],
+                                   rtol=1e-6)
+        assert (gi[:, 0] == a_c).sum() == (wi[:, 0] == a_c).sum()
+
+
+def _both(img, cfg):
+    got = ccl.ccl_features(torch.from_numpy(img),
+                           config_from_reference(cfg))
+    want = jccl.ccl_features(jnp.asarray(img), cfg)
+    return got, want
+
+
+def test_ccl_features_blobs(blob_img):
+    got, want = _both(blob_img, jccl.CclConfig(max_components=16))
+    _assert_same_result(got, want)
+    assert got.area.numpy()[:4].tolist() == [400, 150, 15, 1]
+    assert (int(got.box_x0[0]), int(got.box_y0[0]), int(got.box_x1[0]),
+            int(got.box_y1[0])) == (40, 30, 59, 49)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ccl_features_random_full_capacity(seed, connectivity):
+    img = _random_bin(seed + 10, 0.35, (96, 120))
+    got, want = _both(img, jccl.CclConfig(connectivity=connectivity,
+                                          max_components=2048))
+    assert int(got.num_components) <= 2048
+    _assert_same_result(got, want)
+
+
+@pytest.mark.parametrize("capacity", [8, 64])
+def test_ccl_features_capacity_cut(capacity):
+    img = _random_bin(21, 0.3, (96, 120))
+    got, want = _both(img, jccl.CclConfig(max_components=capacity))
+    assert int(got.num_components) > capacity
+    _assert_same_result(got, want)
+
+
+def test_ccl_features_run_path_without_compactor():
+    """max_runs_per_row = 100 (not a multiple of 8) takes the padded run
+    sort instead of the compactor, as the reference's non-TPU branch."""
+    img = _random_bin(31, 0.4, (60, 90))
+    cfg = jccl.CclConfig(max_components=1024, max_runs_per_row=100)
+    got, want = _both(img, cfg)
+    _assert_same_result(got, want)
+
+
+def test_ccl_features_pixel_path_row_overflow():
+    img = np.zeros((16, 300), np.uint8)
+    img[:, ::2] = 1                          # 150 runs/row > capacity 128
+    got, want = _both(img * 255, jccl.CclConfig(max_components=160))
+    _assert_same_result(got, want)
+    assert (got.area.numpy()[got.valid.numpy()] == 16).all()
+
+
+def test_ccl_features_pixel_path_compactor_overflow(monkeypatch):
+    """A frame of more run records than the compactor holds (600 rows x
+    120 runs = 72000 > 65536) diverts to the pixel path."""
+    img = np.zeros((600, 240), np.uint8)
+    img[:, ::2] = 255
+    yy, xx = np.mgrid[0:600, 0:240]
+    img[(3 * yy + xx) % 50 == 0] = 0         # bars of many lengths
+    calls = []
+    real = ccl._ccl_features_pixels
+    monkeypatch.setattr(ccl, "_ccl_features_pixels",
+                        lambda *a: calls.append(1) or real(*a))
+    got, want = _both(img, jccl.CclConfig(max_components=64))
+    assert calls == [1]
+    _assert_same_result(got, want)
+
+
+def test_ccl_features_from_labels_matches(blob_img):
+    lbl = jccl.label_components(jnp.asarray(blob_img))
+    cfg = jccl.CclConfig(max_components=6)
+    want = jccl.ccl_features_from_labels(lbl, cfg)
+    got = ccl.ccl_features_from_labels(torch.from_numpy(np.array(lbl)),
+                                       config_from_reference(cfg))
+    _assert_same_result(got, want)
+
+
+def test_ccl_features_golden(goldens):
+    gray = torch.from_numpy(make_test_image())
+    binary = threshold.threshold_otsu(gray)[0]
+    res = ccl.ccl_features(binary, ccl.CclConfig(max_components=2048))
+    assert golden.ccl_summary(res) == goldens["ccl_features_summary"]
+    jres = jccl.ccl_features(jnp.asarray(binary.numpy()),
+                             jccl.CclConfig(max_components=2048))
+    _assert_same_result(res, jres)
+
+
+def test_summary_copies_equal_originals():
+    gray = make_test_image()
+    binary = np.asarray(jthr.threshold_otsu(jnp.asarray(gray))[0])
+    jres = jccl.ccl_features(jnp.asarray(binary),
+                             jccl.CclConfig(max_components=2048))
+    assert golden.ccl_summary(jres) == jgolden.ccl_summary(jres)
+    port = result_from_numpy(ccl.CclResult, jres)
+    assert golden.ccl_summary(port) == jgolden.ccl_summary(jres)
+    from compv_tpu.features import mser as jmser
+    mres = jmser.MserResult(*[np.asarray(x) for x in (
+        [3, 4, 5], [1, 2, 3], [10, 20, 30], [100, 200, 300],
+        [0.1, 0.2, 0.3], [0, 0, 0], [0, 0, 0], [1, 1, 1], [1, 1, 1],
+        [True, False, True])], np.int32(2))
+    assert golden.mser_summary(mres) == jgolden.mser_summary(mres)
+
+
+def test_ccl_interop_roundtrip(blob_img):
+    cfg = jccl.CclConfig(connectivity=4, max_components=7)
+    assert config_from_reference(cfg) == ccl.CclConfig(connectivity=4,
+                                                       max_components=7)
+    jres = jccl.ccl_features(jnp.asarray(blob_img), cfg)
+    port = result_from_numpy(ccl.CclResult, jres)
+    assert port.area.dtype == torch.int32 and port.valid.dtype == torch.bool
+    back = result_to_numpy(port)
+    for name in ccl.CclResult._fields:
+        np.testing.assert_array_equal(back[name], np.asarray(getattr(jres,
+                                                                     name)))

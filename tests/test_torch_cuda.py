@@ -1,5 +1,6 @@
-"""The FAST kernel K1 on the card: kernel against its plain twin, exact, and
-the port on CUDA against the port on CPU. Every test needs an NVIDIA GPU
+"""The hand kernels on the card: FAST (K1), the CCL labeler (K2a / K2b) and
+the row compactor (K3), each against its plain twin, exact, and the port
+on CUDA against the port on CPU. Every test needs an NVIDIA GPU
 and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
@@ -88,3 +89,121 @@ def test_orb_cuda_matches_cpu(dev):
     d = (a.keypoints.orientation - b.keypoints.orientation.cpu()).abs()
     assert float(torch.minimum(d, 360 - d).max()) <= 1e-3
     assert float((a.descriptors != b.descriptors.cpu()).float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# CCL labeler (K2a / K2b) and row compactor (K3) against their twins
+
+from compv_tpu_torch.features.ccl import (CclConfig, ccl_features,  # noqa: E402
+                                          extract_runs)
+from compv_tpu_torch.features.mser import MserConfig, mser_detect  # noqa: E402
+from compv_tpu_torch.ops.kernels import ccl_kernel, compact_kernel  # noqa: E402
+
+
+def _snake(h=40, w=40):
+    img = np.zeros((h, w), np.uint8)
+    for r in range(0, h, 4):
+        img[r, :] = 1
+        if r + 4 < h:
+            img[r:r + 4, w - 1 if (r // 4) % 2 == 0 else 0] = 1
+    return img
+
+
+def _binaries():
+    rs = np.random.default_rng(3)
+    out = [(rs.random((64, 80)) < d).astype(np.uint8) for d in (0.3, 0.5, 0.6)]
+    out += [(rs.random((300, 517)) < 0.5).astype(np.uint8), _snake(),
+            _snake(64, 200), np.zeros((17, 33), np.uint8),
+            np.ones((17, 33), np.uint8), np.ones((1, 1), np.uint8),
+            np.zeros((1, 1), np.uint8), (rs.random((1, 77)) < 0.5)
+            .astype(np.uint8), (rs.random((77, 1)) < 0.5).astype(np.uint8),
+            np.ones((1, 77), np.uint8), np.ones((77, 1), np.uint8)]
+    return out
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_ccl_kernel_equals_twin(dev, connectivity):
+    for img in _binaries():
+        t = torch.from_numpy(img * 255)
+        # rounds enough for the twin on near-percolation inputs
+        want = ccl_kernel.label_ref(t != 0, torch.arange(
+            img.size, dtype=torch.int32).reshape(img.shape), connectivity,
+            1000)
+        got = ccl_kernel.ccl_label(t.to(dev), connectivity)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), img.shape
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_ccl_seeded_kernel_equals_twin(dev, connectivity):
+    """A nested ladder of level sets, each level seeded by the previous
+    one's labels, as MSER runs it."""
+    img = _scene(96, 128, seed=6)
+    prev = torch.full(img.shape, -1, dtype=torch.int32)
+    idx = torch.arange(img.size, dtype=torch.int32).reshape(img.shape)
+    for t in range(20, 256, 20):
+        fg = torch.from_numpy(img <= t)
+        init = torch.where(prev >= 0, prev, idx)
+        want = ccl_kernel.label_ref(fg, init, connectivity)
+        got = ccl_kernel.ccl_label_seeded(fg.to(dev), init.to(dev),
+                                          connectivity)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), t
+        prev = want
+
+
+def test_compact_kernel_equals_twin(dev):
+    rs = np.random.default_rng(8)
+    lbl = ccl_kernel.label_ref(torch.from_numpy(rs.random((120, 300)) < 0.4),
+                               torch.arange(36000, dtype=torch.int32)
+                               .reshape(120, 300), 8, 1000)
+    run_lbl, run_x0, run_x1, counts = extract_runs(lbl, 64)
+    assert int(counts.max()) > 64            # rows past the record width
+    a, b = run_lbl.contiguous(), (run_x0 * 1000 + run_x1).contiguous()
+    for cap8 in (4096, 300):                 # fits; overflows
+        want = compact_kernel.compact_ref(a, b, counts, cap8)
+        got = compact_kernel.compact_rows(a.to(dev), b.to(dev),
+                                          counts.to(dev), cap8)
+        torch.cuda.synchronize()
+        total, ok = int(want[2]), bool(want[3])
+        assert int(got[2]) == total and bool(got[3]) == ok
+        assert ok == (cap8 == 4096)
+        defined = total if ok else (cap8 - 64 // 8) * 8
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g[:defined].cpu(), w[:defined])
+
+
+def test_new_kernels_count_their_launches(dev):
+    fg = torch.ones((8, 8), dtype=torch.uint8, device=dev)
+    init = torch.arange(64, dtype=torch.int32, device=dev).reshape(8, 8)
+    counts = torch.full((8,), 3, dtype=torch.int32, device=dev)
+    table = torch.zeros((8, 8), dtype=torch.int32, device=dev)
+    before = (ccl_kernel.ccl_label.launches,
+              ccl_kernel.ccl_label_seeded.launches,
+              compact_kernel.compact_rows.launches)
+    ccl_kernel.ccl_label(fg)
+    ccl_kernel.ccl_label_seeded(fg, init)
+    compact_kernel.compact_rows(table, table, counts, 16)
+    assert (ccl_kernel.ccl_label.launches,
+            ccl_kernel.ccl_label_seeded.launches,
+            compact_kernel.compact_rows.launches) == tuple(
+                x + 1 for x in before)
+
+
+def test_ccl_features_cuda_equals_cpu(dev):
+    img = (_scene(150, 200, seed=9) < 110).astype(np.uint8)
+    cfg = CclConfig(max_components=1024)
+    a = ccl_features(torch.from_numpy(img), cfg)
+    b = ccl_features(torch.from_numpy(img).to(dev), cfg)
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y.cpu()), name
+
+
+def test_mser_cuda_equals_cpu(dev):
+    img = _scene(96, 128, seed=10)
+    for dark in (True, False):
+        cfg = MserConfig(dark=dark, max_regions=32)
+        a = mser_detect(torch.from_numpy(img), cfg)
+        b = mser_detect(torch.from_numpy(img).to(dev), cfg)
+        for name, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y.cpu()), name
