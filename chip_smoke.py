@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each printing its lines before the last:
-  1. device and build: the card's name and power limit, the three kernel
+  1. device and build: the card's name and power limit, the five kernel
      sources built in parallel (one nvcc each), their ptxas lines;
   2. kernel vs twin: the FAST kernel K1 against its plain PyTorch twin, by
      exact equality, on the 720p scene and its pyramid and on odd sizes;
@@ -28,6 +28,20 @@ Phases, each printing its lines before the last:
      through the twins;
   8. times of the text-blob slice (bench.py's ccl_label_text,
      ccl_boxes_text and mser_text rows) and of K2a, K2b and K3 against
+     their twins, as medians of CUDA-event timings;
+  9. Hough kernels vs twins: the SHT accumulator K4 against its twin,
+     exact, on the 720p scene's Canny edge list at 1 and 0.5 degree, a
+     dense random map, an empty list and a 2160x3840 map; the strip label
+     counter K5 against its twin, exact, on the text binary's labels and
+     every changed level of the MSER ladder, and on a truncating case; K5's
+     merged counts against torch.bincount and CclResult.area;
+ 10. the Hough slice: features.canny + features.hough.hough_sht and
+     hough_kht on the 720p scene, calib.checkerboard.find_chessboard_corners
+     on a rendered 6x8 board 720 rows tall at 12 degrees, with K4's launch
+     count, determinism, the twin path, the CPU result and the board's
+     truth; K5's own path (the per-strip histograms of every ladder level);
+ 11. times of the Hough slice (bench.py's canny3x3, hough_sht and
+     hough_kht rows, find_chessboard_corners) and of K4 and K5 against
      their twins, as medians of CUDA-event timings.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
@@ -64,6 +78,10 @@ KERNELS = {
             "compv_tpu/ops/pallas/ccl_kernel.py:171"),
     "K3": ("compact_rows", "compv_tpu_torch/csrc/compact_kernel.cu",
            "compv_tpu/ops/pallas/compact_kernel.py:47"),
+    "K4": ("sht_accumulate", "compv_tpu_torch/csrc/hough_kernel.cu",
+           "compv_tpu/ops/pallas/hough_kernel.py:74"),
+    "K5": ("strip_label_counts", "compv_tpu_torch/csrc/label_stats.cu",
+           "compv_tpu/ops/pallas/label_stats.py:58"),
 }
 
 
@@ -125,7 +143,8 @@ def scenes():
 def phase1_device_and_build():
     from compv_tpu_torch.device import require_cuda
     from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
-                                             compact_kernel, fast_kernel)
+                                             compact_kernel, fast_kernel,
+                                             hough_kernel, label_stats)
 
     dev = require_cuda()
     smi = subprocess.run(
@@ -133,11 +152,13 @@ def phase1_device_and_build():
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     emit(card)
-    names = ("fast_kernel", "ccl_kernel", "compact_kernel")
+    names = ("fast_kernel", "ccl_kernel", "compact_kernel", "hough_kernel",
+             "label_stats")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
-    for module in (fast_kernel, ccl_kernel, compact_kernel):
+    for module in (fast_kernel, ccl_kernel, compact_kernel, hough_kernel,
+                   label_stats):
         module._kernel_lib()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text()
@@ -267,11 +288,20 @@ def phase3_goldens(dev) -> None:
     mser = mser_summary(mser_detect(gray[:160, :224].contiguous(),
                                     MserConfig(max_regions=64)))
     check(mser == goldens["mser_summary"], f"mser_summary {mser}")
+
+    # the Hough golden of scripts/make_goldens.py:89-97
+    from compv_tpu_torch.core.golden import lines_summary
+    from compv_tpu_torch.features.canny import CannyConfig, canny
+    from compv_tpu_torch.features.hough import HoughShtConfig, hough_sht
+
+    hough = lines_summary(hough_sht(canny(gray, CannyConfig()),
+                                    HoughShtConfig()))
+    check(hough == goldens["hough_sht_summary"], f"hough_sht_summary {hough}")
     emit({"phase": 3, "goldens": "met", "checked": [
         "fast9_thr20_nms1", "fast9_thr20_nms0", "fast12_thr40_nms1",
         "fast9_thr40_nms1", "md5_to_gray", "md5_scale_bilinear_299x401",
         "homography_inliers", "homography_hash_q2", "otsu_value",
-        "ccl_features_summary", "mser_summary"]})
+        "ccl_features_summary", "mser_summary", "hough_sht_summary"]})
 
 
 @contextlib.contextmanager
@@ -634,6 +664,313 @@ def phase8_text_times(card: str, text_bin, img, labels, pairs):
     return times
 
 
+# ---------------------------------------------------------------------------
+# the Hough path: SHT accumulator K4, strip label counter K5
+
+
+def render_board(rows=6, cols=8, square=40, margin=60, angle_deg=0.0):
+    """Chessboard with (rows x cols) inner corners, and those corners
+    (rows*cols, 2) row-major: a copy of tests/test_checkerboard.py:12-42,
+    whose module imports JAX."""
+    h = (rows + 1) * square + 2 * margin
+    w = (cols + 1) * square + 2 * margin
+    yy, xx = np.mgrid[0:h, 0:w]
+    if angle_deg:
+        th = np.deg2rad(angle_deg)
+        cx, cy = w / 2, h / 2
+        xr = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th) + cx
+        yr = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th) + cy
+    else:
+        xr, yr = xx.astype(float), yy.astype(float)
+    ix = np.floor((xr - margin) / square).astype(int)
+    iy = np.floor((yr - margin) / square).astype(int)
+    board = (((ix + iy) % 2 == 0) & (ix >= 0) & (ix <= cols) & (iy >= 0)
+             & (iy <= rows))
+    img = np.where(board, 230, 30).astype(np.uint8)
+    corners = []
+    for r in range(1, rows + 1):
+        for c in range(1, cols + 1):
+            x = margin + c * square
+            y = margin + r * square
+            if angle_deg:
+                th = np.deg2rad(angle_deg)
+                cxy = np.array([w / 2, h / 2])
+                p = np.array([x, y]) - cxy
+                x, y = (p[0] * np.cos(th) - p[1] * np.sin(th) + cxy[0],
+                        p[0] * np.sin(th) + p[1] * np.cos(th) + cxy[1])
+            corners.append([x, y])
+    return img, np.array(corners)
+
+
+def sht_args(edges: torch.Tensor, step: float, rho_step: float,
+             capacity: int = 65536):
+    """K4's arguments as hough_sht builds them from an edge map."""
+    from compv_tpu_torch.features.hough import _edge_list
+    from compv_tpu_torch.features.hough_trig import theta_count, theta_table
+
+    h, w = edges.shape
+    x, y, valid = _edge_list(edges, capacity)
+    cos_t, sin_t = theta_table(step, edges.device)
+    return (x, y, valid.to(torch.int32), theta_count(step),
+            float(np.hypot(h, w)), rho_step, cos_t, sin_t)
+
+
+def merged_areas(records, used, n: int) -> torch.Tensor:
+    """Per-label pixel counts summed over K5's strip records (defined slots
+    only), (n,) int64."""
+    slot = (torch.arange(records.shape[2], device=records.device)[None, :]
+            < used[:, None])
+    return torch.zeros(n, dtype=torch.int64, device=records.device
+                       ).index_add_(0, records[:, 0, :][slot].long(),
+                                    records[:, 1, :][slot].long())
+
+
+def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
+                                  pairs, text_labels):
+    from compv_tpu_torch.features.canny import CannyConfig, canny
+    from compv_tpu_torch.features.ccl import CclConfig, ccl_features
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
+
+    rs = np.random.default_rng(9)
+    dense = np.zeros((480, 640), np.uint8)
+    dense[rs.uniform(size=dense.shape) < 0.12] = 255
+    dense[40, :] = 255
+    dense[:, 200] = 255
+    big = ((rs.random((2160, 3840)) < 0.008) * 255).astype(np.uint8)
+    maps = {"scene_720p_canny": canny(torch.from_numpy(scene).to(dev),
+                                      CannyConfig()),
+            "dense_480x640": torch.from_numpy(dense).to(dev),
+            "random_2160x3840": torch.from_numpy(big).to(dev)}
+    k4_cases = []
+    err = {"K4": 0.0, "K5": 0.0}
+    for name, e in maps.items():
+        for step, rho_step in ((1.0, 1.0), (0.5, 1.0), (1.0, 0.7)):
+            args = sht_args(e, step, rho_step)
+            got, want = hk.sht_accumulate(*args), hk.sht_accumulate_ref(*args)
+            err["K4"] = max(err["K4"], float((got - want).abs().max()))
+            check(torch.equal(got, want),
+                  f"K4 != twin on {name} at {step} deg, rho {rho_step}")
+            votes = args[3] * int(args[2].sum())
+            check(int(got.sum()) == votes, f"K4 lost votes on {name}")
+            k4_cases.append({"map": name, "theta_step_deg": step,
+                             "rho": rho_step, "n_rho": got.shape[1],
+                             "edges": int(args[2].sum())})
+    check(k4_cases[-3]["n_rho"] == 8813, "4K map's n_rho != 8813")
+    empty = torch.zeros(0, dtype=torch.float32, device=dev)
+    args = (empty, empty, torch.zeros(0, dtype=torch.int32, device=dev),
+            *sht_args(maps["dense_480x640"], 1.0, 1.0)[3:])
+    got = hk.sht_accumulate(*args)
+    check(torch.equal(got, hk.sht_accumulate_ref(*args))
+          and int(got.abs().sum()) == 0,
+          "K4 on an empty edge list")
+
+    # K5 on the text binary's labels and every changed ladder level
+    k5_maps = [("text_binary", text_labels, 256)]
+    k5_maps += [(f"ladder_{i}", ck.ccl_label_seeded(fg, init, 8), 640)
+                for i, (fg, init) in enumerate(pairs)]
+    k5_maps.append(("text_binary_truncating", text_labels, 8))
+    truncating = 0
+    merged_checked = 0
+    for name, lbl, rounds in k5_maps:
+        got = ls.strip_label_counts(lbl, rounds)
+        want = ls.strip_label_counts_ref(lbl, rounds)
+        for g, w_, field in zip(got, want, ("records", "used", "truncated")):
+            err["K5"] = max(err["K5"], float((g - w_).abs().max()))
+            check(torch.equal(g, w_), f"K5 != twin in {field} on {name}")
+        if int(got[2].sum()):
+            truncating += 1
+            continue
+        fg = lbl[lbl >= 0].long()
+        check(torch.equal(merged_areas(got[0], got[1], lbl.numel()),
+                          torch.bincount(fg, minlength=lbl.numel())),
+              f"K5's merged counts != bincount on {name}")
+        merged_checked += 1
+    check(int(ls.strip_label_counts(text_labels, 8)[2].sum()) > 0,
+          "the truncating case did not truncate")
+    text_bin = torch.from_numpy((text < 128).astype(np.uint8) * 255).to(dev)
+    res = ccl_features(text_bin, CclConfig())
+    rec, used, _ = ls.strip_label_counts(text_labels, 256)
+    areas = merged_areas(rec, used, text_labels.numel())
+    top = torch.sort(areas[areas > 0], descending=True).values
+    n_valid = int(res.valid.sum())
+    check(torch.equal(top[:n_valid].to(torch.int32), res.area[res.valid]),
+          "K5's merged text areas != CclResult.area")
+    torch.cuda.synchronize()
+    emit({"phase": 9, "k4_vs_twin": "exact", "k4_cases": k4_cases,
+          "k4_empty": "exact", "k5_vs_twin": "exact",
+          "k5_maps": len(k5_maps), "k5_truncating_maps": truncating,
+          "k5_merged_vs_bincount": merged_checked,
+          "k5_vs_ccl_area": f"equal on {n_valid} components",
+          "max_abs_err": err})
+    return err
+
+
+@contextlib.contextmanager
+def hough_twins():
+    """Route the SHT accumulator through K4's twin (this phase only)."""
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+
+    saved = hk.sht_accumulate
+    hk.sht_accumulate = hk.sht_accumulate_ref
+    try:
+        yield
+    finally:
+        hk.sht_accumulate = saved
+
+
+def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
+    from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
+                                                    find_chessboard_corners)
+    from compv_tpu_torch.core.golden import lines_summary
+    from compv_tpu_torch.features.canny import CannyConfig, canny
+    from compv_tpu_torch.features.ccl import label_components
+    from compv_tpu_torch.features.edges import sobel_gradients
+    from compv_tpu_torch.features.hough import (HoughKhtConfig,
+                                                HoughShtConfig, hough_kht,
+                                                hough_sht)
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
+
+    # the module: the package exports its function under the same name
+    canny_mod = importlib.import_module("compv_tpu_torch.features.canny")
+    gray = torch.from_numpy(scene).to(dev)
+    board_np, truth = render_board(square=80, margin=80, angle_deg=12.0)
+    board = torch.from_numpy(board_np).to(dev)
+    counts = {}
+
+    torch.cuda.synchronize()
+    hk.sht_accumulate.launches = 0
+    edges = canny(gray, CannyConfig())
+    syncs = canny_mod.last_syncs
+    lines = hough_sht(edges, HoughShtConfig())
+    torch.cuda.synchronize()
+    counts["hough_sht"] = hk.sht_accumulate.launches
+    gx, gy = sobel_gradients(gray)
+    kht = hough_kht(edges, gx, gy, HoughKhtConfig())
+    torch.cuda.synchronize()
+    counts["hough_kht"] = hk.sht_accumulate.launches - counts["hough_sht"]
+    corners = find_chessboard_corners(board, CheckerboardConfig())
+    torch.cuda.synchronize()
+    k4_launches = hk.sht_accumulate.launches
+    counts["find_chessboard_corners"] = k4_launches - counts["hough_sht"]
+    board_syncs = canny_mod.last_syncs
+    check(counts == {"hough_sht": 1, "hough_kht": 0,
+                     "find_chessboard_corners": 1},
+          f"K4 launches {counts}")
+
+    n_lines, n_kht = int(lines.count()), int(kht.count())
+    check(n_lines > 0 and n_kht > 0, f"{n_lines} SHT / {n_kht} KHT lines")
+    for name, ln in (("hough_sht", lines), ("hough_kht", kht)):
+        check(bool(torch.isfinite(ln.rho).all() & torch.isfinite(ln.theta)
+                   .all()), f"{name} lines not finite")
+    got_c = corners.corners.cpu().numpy().astype(np.float64)
+    corner_err = float(np.abs(got_c - truth).max())
+    check(bool(corners.valid) and corners.corners.shape == (48, 2),
+          "find_chessboard_corners: board not found")
+    check(corner_err < 3.0, f"corners {corner_err} px from the truth")
+
+    # the reference's hysteresis cap: does the scene reach it?
+    cap = CannyConfig().max_hysteresis_iters
+    uncapped = canny(gray, CannyConfig(max_hysteresis_iters=1 << 20))
+    cap_loss = int((uncapped != edges).sum())
+
+    same(lines, hough_sht(canny(gray, CannyConfig()), HoughShtConfig()),
+         "hough_sht repeat")
+    same(kht, hough_kht(edges, gx, gy, HoughKhtConfig()), "hough_kht repeat")
+    again = find_chessboard_corners(board, CheckerboardConfig())
+    check(torch.equal(corners.corners, again.corners)
+          and bool(corners.valid == again.valid), "corners repeat")
+    with hough_twins():
+        same(lines, hough_sht(edges, HoughShtConfig()),
+             "hough_sht kernel vs twin path")
+        twin = find_chessboard_corners(board, CheckerboardConfig())
+    check(torch.equal(corners.corners, twin.corners),
+          "corners kernel vs twin path")
+    edges_cpu = canny(gray.cpu(), CannyConfig())
+    check(torch.equal(edges.cpu(), edges_cpu), "canny card != CPU")
+    lines_cpu = hough_sht(edges_cpu, HoughShtConfig())
+    for name, a, b in zip(lines._fields, lines, lines_cpu):
+        check(torch.equal(a.cpu(), b), f"hough_sht card != CPU in {name}")
+    # reported, not held: the card's atan2 may move a KHT point's centre bin
+    kht_cpu = hough_kht(edges_cpu, *sobel_gradients(gray.cpu()),
+                        HoughKhtConfig())
+    kht_same = all(torch.equal(a.cpu(), b) for a, b in zip(kht, kht_cpu))
+
+    # K5's path: the per-strip component histograms of the MSER probe's
+    # ladder (every 5th gray level of the text scene, rounds 640)
+    text_t = torch.from_numpy(text).to(dev)
+    torch.cuda.synchronize()
+    ls.strip_label_counts.launches = 0
+    strip = [ls.strip_label_counts(label_components(text_t <= t), 640)
+             for t in range(5, 256, 5)]
+    torch.cuda.synchronize()
+    k5_launches = ls.strip_label_counts.launches
+    check(k5_launches == 51, f"K5 launches {k5_launches} != 51 levels")
+    used = sum(int(r[1].sum()) for r in strip)
+    emit({"phase": 10, "hough_slice": "ok",
+          "sht_lines": n_lines, "sht_summary": lines_summary(lines),
+          "kht_lines": n_kht, "kht_summary": lines_summary(kht),
+          "canny_edges": int((edges > 0).sum()),
+          "canny_host_syncs": syncs, "canny_cap": cap,
+          "canny_pixels_lost_at_cap": cap_loss,
+          "board_shape": list(board_np.shape), "board_valid": True,
+          "board_corner_err_px": corner_err,
+          "board_canny_host_syncs": board_syncs, "k4_launches": counts,
+          "k5_launches": k5_launches, "k5_strip_records_used": used,
+          "twin_path": "identical Lines and corners",
+          "cpu": "identical canny map and hough_sht Lines",
+          "kht_card_equals_cpu": kht_same})
+    return gray, edges, board, k4_launches, k5_launches
+
+
+def phase11_hough_times(card: str, gray, edges, board, text_labels):
+    from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
+                                                    find_chessboard_corners)
+    from compv_tpu_torch.features.canny import CannyConfig, canny
+    from compv_tpu_torch.features.edges import sobel_gradients
+    from compv_tpu_torch.features.hough import (HoughKhtConfig,
+                                                HoughShtConfig, hough_kht,
+                                                hough_sht)
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
+
+    def kht_row():
+        e = canny(gray, CannyConfig())
+        gx, gy = sobel_gradients(gray)
+        return hough_kht(e, gx, gy, HoughKhtConfig())
+
+    rows = {
+        "canny3x3_ms": cuda_ms(lambda: canny(gray, CannyConfig()), reps=20),
+        "hough_sht_ms": cuda_ms(
+            lambda: hough_sht(canny(gray, CannyConfig()), HoughShtConfig()),
+            reps=20),
+        "hough_kht_ms": cuda_ms(kht_row, reps=20),
+        "find_chessboard_corners_ms": cuda_ms(
+            lambda: find_chessboard_corners(board, CheckerboardConfig()),
+            reps=20),
+    }
+    args = sht_args(edges, 1.0, 1.0)
+    times = {
+        "K4": (cuda_ms(lambda: hk.sht_accumulate(*args), reps=20, inner=10),
+               cuda_ms(lambda: hk.sht_accumulate_ref(*args), reps=10)),
+        "K5": (cuda_ms(lambda: ls.strip_label_counts(text_labels, 256),
+                       reps=20, inner=10),
+               cuda_ms(lambda: ls.strip_label_counts_ref(text_labels, 256),
+                       reps=10)),
+    }
+    emit({"phase": 11, "card": card, **rows,
+          "k4_edge_slots": int(args[0].numel()),
+          "k4_valid_edges": int(args[2].sum()),
+          **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
+          **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
+          "k4_at": "720p scene's Canny edge list, 1 deg, rho 1",
+          "k5_at": "text binary's 8-conn labels, rounds 256",
+          "timing": "median of CUDA-event timings after warm-up"})
+    return times
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -647,9 +984,13 @@ def main() -> int:
     pairs, labels = phase6_ccl_kernels_vs_twins(dev, text)
     text_bin, img, labels, launches = phase7_text_slice(dev, text, len(pairs))
     times = phase8_text_times(card, text_bin, img, labels, pairs)
+    k45_err = phase9_hough_kernels_vs_twins(dev, scene, text, pairs, labels)
+    gray, edges, board, launches["K4"], launches["K5"] = phase10_hough_slice(
+        dev, scene, text)
+    times.update(phase11_hough_times(card, gray, edges, board, labels))
     launches["K1"] = k1_launches
     times["K1"] = (kernel_ms, twin_ms)
-    errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0}
+    errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0, **k45_err}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[kid], "max_abs_err": errs[kid],

@@ -23,5 +23,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-from compv_tpu_torch.core.types import Keypoints, Matches  # noqa: E402,F401
+from compv_tpu_torch.core.types import (  # noqa: E402,F401
+    Keypoints, Lines, Matches)
 from compv_tpu_torch.device import require_cuda  # noqa: E402,F401

@@ -1,13 +1,14 @@
 """Golden-value helpers: copies of ``compv_tpu/core/golden.py``
-``ccl_summary`` and ``mser_summary``, which that module cannot lend
-(it imports ``jax.numpy``). They read numpy arrays, and tensors on any
-device; ``tests/test_torch_ccl.py`` proves each copy equal to its original.
+``ccl_summary``, ``lines_summary`` and ``mser_summary``, which that module
+cannot lend (it imports ``jax.numpy``). They read numpy arrays, and tensors
+on any device; ``tests/test_torch_ccl.py`` and ``tests/test_torch_hough.py``
+prove each copy equal to its original.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ccl_summary", "mser_summary"]
+__all__ = ["ccl_summary", "lines_summary", "mser_summary"]
 
 
 def _np(x) -> np.ndarray:
@@ -28,6 +29,17 @@ def ccl_summary(res) -> dict:
                           + _np(res.box_x1)[v] + _np(res.box_y1)[v]).sum()),
         "sum_cx": round(float(_np(res.cx)[v].sum()), 2),
         "sum_cy": round(float(_np(res.cy)[v].sum()), 2),
+    }
+
+
+def lines_summary(lines) -> dict:
+    """Hough golden tuple over the valid fixed-capacity peaks."""
+    v = _np(lines.valid)
+    return {
+        "count": int(v.sum()),
+        "sum_rho": round(float(_np(lines.rho)[v].sum()), 2),
+        "sum_theta": round(float(_np(lines.theta)[v].sum()), 4),
+        "sum_strength": round(float(_np(lines.strength)[v].sum()), 2),
     }
 
 

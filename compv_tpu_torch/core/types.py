@@ -11,7 +11,7 @@ import torch
 
 from compv_tpu_torch.ops.topk import select_top_k
 
-__all__ = ["Keypoints", "Matches"]
+__all__ = ["Keypoints", "Lines", "Matches"]
 
 
 class Keypoints(NamedTuple):
@@ -71,3 +71,16 @@ class Matches(NamedTuple):
     train_idx: torch.Tensor  # (K, Nq) i32
     distance: torch.Tensor   # (K, Nq) f32 (Hamming distance is integral)
     valid: torch.Tensor      # (K, Nq) bool
+
+
+class Lines(NamedTuple):
+    """Fixed-capacity set of polar lines (rho, theta, strength): the output
+    of the Hough transforms (reference CompVHoughLine)."""
+
+    rho: torch.Tensor       # (L,) f32
+    theta: torch.Tensor     # (L,) f32 radians
+    strength: torch.Tensor  # (L,) f32
+    valid: torch.Tensor     # (L,) bool
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1)

@@ -1,4 +1,5 @@
 """Feature detection and description (mirror of compv_tpu.features)."""
+from compv_tpu_torch.features.canny import CannyConfig, canny  # noqa: F401
 from compv_tpu_torch.features.ccl import (  # noqa: F401
     CclConfig, CclResult, ccl_features, ccl_features_from_labels,
     extract_runs, label_components, label_components_seeded,
@@ -12,4 +13,11 @@ from compv_tpu_torch.features.orb import (  # noqa: F401
 )
 from compv_tpu_torch.features.mser import (  # noqa: F401
     MserConfig, MserResult, mser_detect, mser_region_mask, mser_region_points,
+)
+from compv_tpu_torch.features.edges import (  # noqa: F401
+    KERNELS, edge_detect, gradient_magnitude_direction, sobel_gradients,
+)
+from compv_tpu_torch.features.hough import (  # noqa: F401
+    HoughKhtConfig, HoughShtConfig, hough_kht, hough_lines_to_cartesian,
+    hough_sht, hough_sht_stats,
 )

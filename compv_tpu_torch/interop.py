@@ -13,10 +13,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
+                                                CheckerboardResult)
 from compv_tpu_torch.calib.homography import HomographyConfig
-from compv_tpu_torch.core.types import Keypoints
+from compv_tpu_torch.core.types import Keypoints, Lines
+from compv_tpu_torch.features.canny import CannyConfig
 from compv_tpu_torch.features.ccl import CclConfig, CclResult
 from compv_tpu_torch.features.fast import FastConfig
+from compv_tpu_torch.features.hough import HoughKhtConfig, HoughShtConfig
 from compv_tpu_torch.features.mser import MserConfig, MserResult
 from compv_tpu_torch.features.orb import OrbConfig
 from compv_tpu_torch.slam.frontend import FrontendConfig
@@ -26,7 +30,9 @@ __all__ = ["config_from_reference", "keypoints_from_numpy",
 
 _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      HomographyConfig, FastConfig,
-                                     CclConfig, MserConfig)}
+                                     CclConfig, MserConfig, CannyConfig,
+                                     HoughShtConfig, HoughKhtConfig,
+                                     CheckerboardConfig)}
 
 _DTYPES = {"level": torch.int32, "valid": torch.bool}
 
@@ -35,12 +41,15 @@ _RESULT_DTYPES = {
     CclResult: {"cx": torch.float32, "cy": torch.float32,
                 "valid": torch.bool},
     MserResult: {"variation": torch.float32, "valid": torch.bool},
+    Lines: {"rho": torch.float32, "theta": torch.float32,
+            "strength": torch.float32, "valid": torch.bool},
 }
 
 
 def config_from_reference(cfg):
     """The port's counterpart of a ``compv_tpu`` config (FrontendConfig,
-    OrbConfig, HomographyConfig, FastConfig, CclConfig or MserConfig),
+    OrbConfig, HomographyConfig, FastConfig, CclConfig, MserConfig,
+    CannyConfig, HoughShtConfig, HoughKhtConfig or CheckerboardConfig),
     built field by field; nested configs are converted too."""
     cls = _CONFIGS.get(type(cfg).__name__)
     if cls is None or not dataclasses.is_dataclass(cfg):
@@ -70,13 +79,22 @@ def keypoints_to_numpy(kp: Keypoints) -> dict[str, np.ndarray]:
 
 
 def result_from_numpy(cls, res, device=None):
-    """A port ``CclResult`` or ``MserResult`` (``cls``) from anything with
-    its fields as attributes (the ``compv_tpu`` result, or a dict of
-    arrays), on ``device``; integer fields are i32."""
-    if cls not in _RESULT_DTYPES:
-        raise TypeError(f"no numpy conversion for {cls.__name__}")
+    """A port ``CclResult``, ``MserResult``, ``Lines`` or
+    ``CheckerboardResult`` (``cls``) from anything with its fields as
+    attributes (the ``compv_tpu`` result, or a dict of arrays), on
+    ``device``; integer fields are i32, nested results are converted too."""
     get = res.__getitem__ if isinstance(res, dict) else (
         lambda k: getattr(res, k))
+    if cls is CheckerboardResult:
+        return CheckerboardResult(
+            corners=torch.as_tensor(np.array(get("corners")),
+                                    dtype=torch.float32, device=device),
+            valid=torch.as_tensor(np.array(get("valid")), dtype=torch.bool,
+                                  device=device),
+            h_lines=result_from_numpy(Lines, get("h_lines"), device),
+            v_lines=result_from_numpy(Lines, get("v_lines"), device))
+    if cls not in _RESULT_DTYPES:
+        raise TypeError(f"no numpy conversion for {cls.__name__}")
     dtypes = _RESULT_DTYPES[cls]
     return cls(*[
         torch.as_tensor(np.array(get(name)),
@@ -84,7 +102,9 @@ def result_from_numpy(cls, res, device=None):
         for name in cls._fields])
 
 
-def result_to_numpy(res) -> dict[str, np.ndarray]:
-    """{field: numpy array} of a port ``CclResult`` or ``MserResult``."""
-    return {name: getattr(res, name).detach().cpu().numpy()
-            for name in res._fields}
+def result_to_numpy(res) -> dict:
+    """{field: numpy array} of a port ``CclResult``, ``MserResult``,
+    ``Lines`` or ``CheckerboardResult`` (nested results as dicts)."""
+    return {name: (result_to_numpy(v) if isinstance(v, tuple)
+                   else v.detach().cpu().numpy())
+            for name, v in zip(res._fields, res)}

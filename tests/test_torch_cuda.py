@@ -1,6 +1,7 @@
-"""The hand kernels on the card: FAST (K1), the CCL labeler (K2a / K2b) and
-the row compactor (K3), each against its plain twin, exact, and the port
-on CUDA against the port on CPU. Every test needs an NVIDIA GPU
+"""The hand kernels on the card: FAST (K1), the CCL labeler (K2a / K2b),
+the row compactor (K3), the SHT accumulator (K4) and the strip label
+counter (K5), each against its plain twin, exact, and the port on CUDA
+against the port on CPU. Every test needs an NVIDIA GPU
 and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
@@ -207,3 +208,132 @@ def test_mser_cuda_equals_cpu(dev):
         b = mser_detect(torch.from_numpy(img).to(dev), cfg)
         for name, x, y in zip(a._fields, a, b):
             assert torch.equal(x, y.cpu()), name
+
+
+# ---------------------------------------------------------------------------
+# SHT accumulator (K4), strip label counter (K5) and the Hough path
+
+from compv_tpu_torch.calib.checkerboard import (  # noqa: E402
+    CheckerboardConfig, find_chessboard_corners)
+from compv_tpu_torch.features.canny import CannyConfig, canny  # noqa: E402
+from compv_tpu_torch.features.ccl import label_components  # noqa: E402
+from compv_tpu_torch.features.edges import sobel_gradients  # noqa: E402
+from compv_tpu_torch.features.hough import (  # noqa: E402
+    HoughKhtConfig, HoughShtConfig, hough_kht, hough_sht)
+from compv_tpu_torch.features.hough_trig import (  # noqa: E402
+    theta_count, theta_table)
+from compv_tpu_torch.ops.kernels import hough_kernel, label_stats  # noqa: E402
+
+
+def _edge_list(seed, n, h, w, valid_frac=0.7):
+    rs = np.random.default_rng(seed)
+    return (torch.from_numpy(rs.integers(0, w, n).astype(np.float32)),
+            torch.from_numpy(rs.integers(0, h, n).astype(np.float32)),
+            torch.from_numpy((rs.random(n) < valid_frac).astype(np.int32)))
+
+
+def _sht(x, y, wt, step, rho_max, rho_step, fn):
+    cos_t, sin_t = theta_table(step, x.device)
+    return fn(x, y, wt, theta_count(step), rho_max, rho_step, cos_t, sin_t)
+
+
+@pytest.mark.parametrize("step", [1.0, 0.5])
+@pytest.mark.parametrize("rho_step", [1.0, 0.7])
+@pytest.mark.parametrize("n,h,w", [(0, 8, 8), (3, 5, 7), (4000, 240, 320),
+                                   (65536, 720, 1282), (65536, 2160, 3840)])
+def test_sht_kernel_equals_twin(dev, step, rho_step, n, h, w):
+    x, y, wt = (t.to(dev) for t in _edge_list(n, n, h, w))
+    rho_max = float(np.hypot(h, w))
+    want = _sht(x, y, wt, step, rho_max, rho_step,
+                hough_kernel.sht_accumulate_ref)
+    got = _sht(x, y, wt, step, rho_max, rho_step,
+               hough_kernel.sht_accumulate)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    assert int(got.sum()) == theta_count(step) * int(wt.sum())
+
+
+def test_sht_kernel_raises_past_shared_memory(dev):
+    x, y, wt = (t.to(dev) for t in _edge_list(0, 16, 8, 8))
+    with pytest.raises(ValueError):
+        _sht(x, y, wt, 1.0, 40000.0, 1.0, hough_kernel.sht_accumulate)
+
+
+def _label_maps():
+    rs = np.random.default_rng(12)
+    maps = [label_components(torch.from_numpy(
+        (rs.random(shape) < d).astype(np.uint8)), conn, 1000)
+        for shape, d, conn in (((16, 96), 0.4, 4), ((21, 40), 0.5, 8),
+                               ((300, 1122), 0.45, 8), ((13, 7), 0.6, 8))]
+    maps.append(torch.full((10, 12), -1, dtype=torch.int32))
+    return maps
+
+
+@pytest.mark.parametrize("rounds,strip_rows", [(32, 8), (256, 8), (256, 4),
+                                               (640, 8)])
+def test_strip_counts_kernel_equals_twin(dev, rounds, strip_rows):
+    for lbl in _label_maps():
+        want = label_stats.strip_label_counts_ref(lbl, rounds, strip_rows)
+        got = label_stats.strip_label_counts(lbl.to(dev), rounds, strip_rows)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), tuple(lbl.shape)
+
+
+def test_hough_kernels_count_their_launches(dev):
+    x, y, wt = (t.to(dev) for t in _edge_list(1, 64, 20, 30))
+    lbl = torch.zeros((16, 16), dtype=torch.int32, device=dev)
+    before = (hough_kernel.sht_accumulate.launches,
+              label_stats.strip_label_counts.launches)
+    _sht(x, y, wt, 1.0, 40.0, 1.0, hough_kernel.sht_accumulate)
+    label_stats.strip_label_counts(lbl)
+    assert (hough_kernel.sht_accumulate.launches,
+            label_stats.strip_label_counts.launches) == tuple(
+                b + 1 for b in before)
+
+
+def _board(rows=6, cols=8, square=40, margin=60, angle_deg=0.0):
+    """A rendered chessboard (tests/test_checkerboard.py:render_board)."""
+    h = (rows + 1) * square + 2 * margin
+    w = (cols + 1) * square + 2 * margin
+    yy, xx = np.mgrid[0:h, 0:w].astype(float)
+    th = np.deg2rad(angle_deg)
+    xr = (xx - w / 2) * np.cos(th) + (yy - h / 2) * np.sin(th) + w / 2
+    yr = -(xx - w / 2) * np.sin(th) + (yy - h / 2) * np.cos(th) + h / 2
+    ix = np.floor((xr - margin) / square).astype(int)
+    iy = np.floor((yr - margin) / square).astype(int)
+    board = (((ix + iy) % 2 == 0) & (ix >= 0) & (ix <= cols) & (iy >= 0)
+             & (iy <= rows))
+    return np.where(board, 230, 30).astype(np.uint8)
+
+
+def test_canny_and_hough_cuda_equal_cpu(dev):
+    img = _scene(240, 320, seed=11)
+    for cfg in (CannyConfig(), CannyConfig(20, 60)):
+        a = canny(torch.from_numpy(img), cfg)
+        b = canny(torch.from_numpy(img).to(dev), cfg)
+        assert torch.equal(a, b.cpu())
+    for cfg in (HoughShtConfig(threshold=30), HoughShtConfig(
+            threshold=0.3, rho=0.7, theta_step_deg=0.5, max_lines=16)):
+        la = hough_sht(a, cfg)
+        lb = hough_sht(a.to(dev), cfg)
+        for name, x, y in zip(la._fields, la, lb):
+            assert torch.equal(x, y.cpu()), name
+    gx, gy = sobel_gradients(torch.from_numpy(img))
+    ka = hough_kht(a, gx, gy, HoughKhtConfig(min_votes=10.0))
+    kb = hough_kht(a.to(dev), gx.to(dev), gy.to(dev),
+                   HoughKhtConfig(min_votes=10.0))
+    # atan2 of another math library may move a point's centre bin
+    assert abs(int(ka.count()) - int(kb.count())) <= 1
+    assert float((ka.strength.sum() - kb.strength.cpu().sum()).abs()) <= 4.0
+
+
+@pytest.mark.parametrize("angle", [0.0, 12.0])
+def test_chessboard_cuda_matches_cpu(dev, angle):
+    img = _board(angle_deg=angle)
+    a = find_chessboard_corners(torch.from_numpy(img), CheckerboardConfig())
+    b = find_chessboard_corners(torch.from_numpy(img).to(dev),
+                                CheckerboardConfig())
+    assert bool(a.valid) and bool(b.valid)
+    assert float((a.corners - b.corners.cpu()).abs().max()) <= 1e-3
