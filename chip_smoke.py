@@ -4,6 +4,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+With --text-kernel-times it only times the labelers and the compactor at
+the text scene's shapes and prints one JSON line; --package-root DIR takes
+compv_tpu_torch from another checkout, so that two versions of a kernel
+can be timed in turns on one card:
+
+    python3 chip_smoke.py --text-kernel-times [--package-root DIR]
+
 Phases, each printing its lines before the last:
   1. device and build: the card's name and power limit, the five kernel
      sources built in parallel (one nvcc each), their ptxas lines;
@@ -19,16 +26,25 @@ Phases, each printing its lines before the last:
      its twin, as medians of CUDA-event timings;
   6. CCL kernels vs twins: the labeler K2a / K2b and the row compactor K3
      against their twins, exact, on bench.py's 1122x1182 text scene (its
-     binary at both connectivities, every level of its MSER ladder, its run
-     tables with and without overflow), a 1285x1285 random binary, a snake
-     and edge shapes; the text partition against scipy.ndimage.label;
+     binary at both connectivities, every changed level of its MSER ladder
+     at both connectivities, its run tables with and without overflow and
+     with a row count that is no multiple of 8), a 1285x1285 random binary,
+     a snake and edge shapes; the text partition against
+     scipy.ndimage.label; the seeded labeler K2b against K2a on every level
+     (from the ladder's seed and from an own-index seed), run twice, and on
+     a seed with out-of-range and background entries; exactly one device
+     operation per compact_rows call, counted as the nodes of a captured
+     CUDA graph and, where torch.profiler recorded the window, by it too;
   7. the text-blob slice: features.ccl.ccl_features on the text binary and
      features.mser.mser_detect on the text scene at full width, with launch
      counts, scipy's component count, determinism, and the same calls
      through the twins;
   8. times of the text-blob slice (bench.py's ccl_label_text,
-     ccl_boxes_text and mser_text rows) and of K2a, K2b and K3 against
-     their twins, as medians of CUDA-event timings;
+     ccl_boxes_text and mser_text rows, each also under torch.profiler for
+     its device-busy time, device operations and idle share) and of K2a,
+     K2b and K3 against their twins, as medians of CUDA-event timings;
+     K2b per ladder level and per pass; launches per call of each path; the
+     launch floor (one trivial launch through ctypes, back to back);
   9. Hough kernels vs twins: the SHT accumulator K4 against its twin,
      exact, on the 720p scene's Canny edge list at 1 and 0.5 degree, a
      dense random map, an empty list and a 2160x3840 map; the strip label
@@ -47,8 +63,16 @@ Phases, each printing its lines before the last:
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
 non-zero; so it does without a GPU, and outside a checkout of the
-repository. The line before the last names the card and its power limit;
-the last line of standard output is one JSON object:
+repository. The "kernels" line gives each kernel's launches on its path,
+error, time (CUDA events around back-to-back calls, so the host's pace can
+enter), device time (the profiler's; a profiler window that comes back
+without a device event is taken again, up to three times, and then the
+reading is made by CUDA events or left null, counted on the "profiler"
+line; --no-profiler makes every reading that way), twin time, bound (the larger of its
+bytes over the card's memory rate and its operations over the card's peak
+rate, from this run's inputs) and library time (null: no single PyTorch
+call computes any of the six functions). The line before the last names the card and its power
+limit; the last line of standard output is one JSON object:
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -116,6 +140,156 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+# torch.profiler windows opened by this run, and how many of them came
+# back without a device-side event (the card's tracing can drop a window)
+PROFILER = {"windows": 0, "empty": 0, "fallbacks": 0}
+
+
+def device_events(fn, calls: int = 1, attempts: int = 3):
+    """(events, wall ms per call): the device-side events (kernels, copies,
+    memsets) torch.profiler records while ``fn`` runs ``calls`` times after
+    one warm call, each as (name, microseconds), and the host wall time of
+    the profiled window. A window that comes back without a device event is
+    taken again, ``attempts`` times in all; ``events`` is empty when none
+    of them recorded one, and the caller measures another way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    events, wall_ms = [], None
+    if "--no-profiler" in sys.argv:   # every reading takes its other way
+        attempts = 0
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        PROFILER["windows"] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        PROFILER["empty"] += 1
+        print("torch.profiler recorded no device event; trying again",
+              file=sys.stderr, flush=True)
+    return events, wall_ms
+
+
+def device_profile(fn, ms: float, calls: int = 3) -> dict:
+    """Per call of ``fn``, over ``calls`` profiled calls: device-busy ms,
+    device operations, the wall ms under the profiler, and the idle share
+    1 - busy / ms against ``ms``, the call's time without the profiler.
+    Where the profiler recorded nothing, these are not measured (null)."""
+    events, wall_ms = device_events(fn, calls)
+    if not events:
+        PROFILER["fallbacks"] += 1
+        return {"busy_ms": None, "device_ops": None,
+                "profiled_wall_ms": wall_ms, "idle_share": None}
+    busy_ms = sum(us for _, us in events) / 1e3 / calls
+    return {"busy_ms": busy_ms, "device_ops": len(events) / calls,
+            "profiled_wall_ms": wall_ms, "idle_share": 1 - busy_ms / ms}
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn`` in ms: the sum of its device-side
+    events under torch.profiler, which the host's pace does not enter.
+    Where the profiler recorded nothing: CUDA events around ``calls`` calls
+    made back to back, the least of five readings, which the host's pace
+    does enter (counted in PROFILER["fallbacks"])."""
+    events = device_events(fn, calls)[0]
+    if events:
+        return sum(us for _, us in events) / 1e3 / calls
+    PROFILER["fallbacks"] += 1
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return min(times)
+
+
+def captured_nodes(fn) -> list:
+    """The node types of the CUDA graph that capturing one call of ``fn``
+    on a stream gives (0 is a kernel, 1 a copy, 2 a memset): every device
+    operation the call issues, counted by libcuda and not by the
+    profiler. The graph is never launched."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(code, what):
+        check(code == 0, f"{what} returned {code}")
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()                        # the allocator now holds the blocks
+        stream.synchronize()
+        handle = ctypes.c_void_p(stream.cuda_stream)
+        graph = ctypes.c_void_p()
+        # mode 2, relaxed: an allocation during the capture is allowed
+        ok(cu.cuStreamBeginCapture_v2(handle, 2), "cuStreamBeginCapture")
+        try:
+            fn()
+        finally:
+            ok(cu.cuStreamEndCapture(handle, ctypes.byref(graph)),
+               "cuStreamEndCapture")
+    count = ctypes.c_size_t()
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)),
+       "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)),
+       "cuGraphGetNodes")
+    types = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        types.append(kind.value)
+    ok(cu.cuGraphDestroy(graph), "cuGraphDestroy")
+    torch.cuda.synchronize()
+    return types
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host time per call of ``fn`` in microseconds: ``n`` calls made
+    back to back without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, fp32
+# outside the tensor cores (an FMA counts two), and int32 operations, which
+# run on half of the fp32 lanes and count one each.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = FP32_OPS_PER_S / 4
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    their peak rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(nbytes), "operations": int(ops)}
+
+
 def load_by_path(name: str, rel: str):
     """A numpy-only module of this checkout (tests/fixtures.py, bench.py),
     loaded by path: a package named ``tests`` elsewhere on sys.path would
@@ -140,6 +314,14 @@ def scenes():
     return load_by_path("compv_bench", "bench.py")._images()
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase1_device_and_build():
     from compv_tpu_torch.device import require_cuda
     from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
@@ -147,10 +329,7 @@ def phase1_device_and_build():
                                              hough_kernel, label_stats)
 
     dev = require_cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     emit(card)
     names = ("fast_kernel", "ccl_kernel", "compact_kernel", "hough_kernel",
              "label_stats")
@@ -400,11 +579,22 @@ def phase5_times(dev, card: str, cfg, img1, img2):
         return s, fk._nms_ref(s)
 
     twin_ms = cuda_ms(twin, reps=20, inner=5)
+    dev_ms = device_ms(lambda: fk.fast_strengths_and_nms(img1, 20, 9))
+    # bytes: the u8 image read, two f32 maps written. Operations per pixel
+    # at n = 9: 16 subtractions, a windowed minimum in 4 doubling steps of
+    # 16 and a maximum over 16 for each of the two sides, the clip, and 9
+    # for the 3x3 NMS; int32.
+    n = img1.numel()
+    k1_bound = bound(n + 2 * 4 * n, (2 * (16 + 4 * 16 + 15) + 2 + 9) * n,
+                     INT32_OPS_PER_S)
     emit({"phase": 5, "card": card, "match_pair_720p_ms": pair_ms,
           "k1_two_output_level0_us": kernel_ms * 1e3,
-          "k1_twin_level0_us": twin_ms * 1e3, "timing": "median of 20 "
+          "k1_device_us": dev_ms * 1e3,
+          "k1_twin_level0_us": twin_ms * 1e3,
+          "k1_bound_us": k1_bound["bound_ms"] * 1e3,
+          "k1_bound_by": k1_bound["bound_by"], "timing": "median of 20 "
           "CUDA-event timings after warm-up"})
-    return kernel_ms, twin_ms
+    return (kernel_ms, twin_ms, dev_ms), k1_bound
 
 
 # ---------------------------------------------------------------------------
@@ -425,10 +615,10 @@ def oracle_labels(binary: np.ndarray, connectivity: int) -> np.ndarray:
     return out
 
 
-def ladder(f: torch.Tensor, config):
-    """The (fg, init) pairs MSER's ladder gives K2b on ``f`` (dark mode):
-    one per changed level, each seeded by the previous level's labels as
-    the twin gives them."""
+def ladder(f: torch.Tensor, config, connectivity: int = 8):
+    """The (fg, init, labels) triples of MSER's ladder on ``f`` (dark
+    mode): one per changed level, each seeded by the previous level's
+    labels, which are the twin's."""
     from compv_tpu_torch.features.mser import ladder_levels
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
 
@@ -436,14 +626,14 @@ def ladder(f: torch.Tensor, config):
     h, w = f.shape
     idx = torch.arange(h * w, dtype=torch.int32, device=f.device).reshape(h, w)
     lbl = torch.full((h, w), -1, dtype=torch.int32, device=f.device)
-    pairs = []
+    triples = []
     for t in levels:
         fg = f <= t
         if bool((fg != (lbl >= 0)).any()):
             init = torch.where(lbl >= 0, lbl, idx)
-            pairs.append((fg, init))
-            lbl = ck.label_ref(fg, init, 8)
-    return pairs
+            lbl = ck.label_ref(fg, init, connectivity, 1000)
+            triples.append((fg, init, lbl))
+    return triples
 
 
 def run_tables(labels: torch.Tensor, k: int):
@@ -494,12 +684,45 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
     part = np.array_equal(got.cpu().numpy(), oracle_labels(text_bin, 8))
     check(part, "K2a's text partition != scipy.ndimage.label's")
 
+    # K2b on every changed level of the text ladder: the twin's labels,
+    # K2a's labels, the same from an own-index seed, the same again
     f = torch.from_numpy(text).to(dev)
-    pairs = ladder(f, MserConfig())
-    for fg, init in pairs:
-        want = ck.label_ref(fg, init, 8)
-        check(torch.equal(ck.ccl_label_seeded(fg, init, 8), want),
-              "K2b != twin on a level of the text ladder")
+    idx = torch.arange(text.size, dtype=torch.int32,
+                       device=dev).reshape(text.shape)
+    ladders = {conn: ladder(f, MserConfig(), conn) for conn in (8, 4)}
+    for conn, triples in ladders.items():
+        for fg, init, want in triples:
+            got = ck.ccl_label_seeded(fg, init, conn)
+            where = f"a level of the {conn}-connected text ladder"
+            check(torch.equal(got, want), f"K2b != twin on {where}")
+            check(torch.equal(got, ck.ccl_label(fg, conn)),
+                  f"K2b != K2a on {where}")
+            check(torch.equal(ck.ccl_label_seeded(fg, idx, conn), got),
+                  f"K2b from an own-index seed != K2a on {where}")
+            check(torch.equal(ck.ccl_label_seeded(fg, init, conn), got),
+                  f"K2b differs from run to run on {where}")
+    pairs = [(fg, init) for fg, init, _ in ladders[8]]
+
+    # a seed with entries below 0, past the own index, on background and
+    # (at background pixels, never read) anywhere: still in bounds, and the
+    # labels of the mask
+    fg, init, want = ladders[8][len(pairs) // 2]
+    bad = init.clone().reshape(-1)
+    on = torch.nonzero(fg.reshape(-1))[:, 0]
+    off = torch.nonzero(~fg.reshape(-1))[:, 0]
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    hit = on[torch.randperm(on.numel(), generator=gen)[:40000].to(dev)]
+    bad[hit[:10000]] = -1
+    bad[hit[10000:20000]] = 2 ** 31 - 1
+    bad[hit[20000:30000]] = torch.clamp(hit[20000:30000] + 1,
+                                        max=text.size - 1).to(torch.int32)
+    below = torch.searchsorted(off, hit[30000:]) - 1
+    bad[hit[30000:]] = off[torch.clamp(below, min=0)].to(torch.int32)
+    bad[off] = torch.randint(-2 ** 31, 2 ** 31 - 1, (off.numel(),),
+                             generator=gen, dtype=torch.int64
+                             ).to(torch.int32).to(dev)
+    check(torch.equal(ck.ccl_label_seeded(fg, bad.reshape(fg.shape), 8),
+                      want), "K2b on a seed with invalid entries")
 
     labels = ck.label_ref(torch.from_numpy(text_bin).to(dev) != 0,
                           torch.arange(text.size, dtype=torch.int32,
@@ -507,27 +730,49 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
     k3_cases = []
     a, b, counts = run_tables(labels, 128)
     half = int(cpk.compact_ref(a, b, counts, 8192)[2]) // 16   # chunks / 2
-    for k, cap8 in ((128, 8192), (128, max(half, 1)), (16, 8192)):
-        a, b, counts = run_tables(labels, k)
+    for k, cap8, rows in ((128, 8192, 1182), (128, max(half, 16), 1182),
+                          (16, 8192, 1182), (128, 8192, 1179)):
+        a, b, counts = (t[:rows] for t in run_tables(labels, k))
         want = cpk.compact_ref(a, b, counts, cap8)
         got = cpk.compact_rows(a, b, counts, cap8)
         total, ok = int(want[2]), bool(want[3])
+        check(got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+              and int(got[3].view(torch.uint8)) in (0, 1),
+              "K3's total / ok types")
         check(int(got[2]) == total and bool(got[3]) == ok,
               f"K3 total/ok {int(got[2])}/{bool(got[3])} != twin "
               f"{total}/{ok}")
         defined = total if ok else (cap8 - k // 8) * 8
         for g, w_ in zip(got[:2], want[:2]):
             check(torch.equal(g[:defined], w_[:defined]),
-                  f"K3 != twin at K={k}, cap8={cap8}")
-        k3_cases.append({"K": k, "cap8": cap8, "ok": ok, "total": total,
-                         "max_count": int(counts.max())})
+                  f"K3 != twin at K={k}, cap8={cap8}, H={rows}")
+        k3_cases.append({"K": k, "cap8": cap8, "H": rows, "ok": ok,
+                         "total": total, "max_count": int(counts.max())})
     check(not k3_cases[1]["ok"], "the overflow case did not overflow")
     check(k3_cases[2]["max_count"] > 16, "no row has more runs than K=16")
+    a, b, counts = run_tables(labels, 128)
+    k3_nodes = captured_nodes(lambda: cpk.compact_rows(a, b, counts, 8192))
+    check(k3_nodes == [0], "compact_rows made other device operations "
+          f"than one kernel: node types {k3_nodes}")
+    # the twin's offsets alone (its indexed copy waits for the host, which
+    # a capture does not allow): the operations K3 now does inside
+    ref_nodes = captured_nodes(lambda: cpk._offsets(counts, 128, 8192))
+    check(len(ref_nodes) > 1, "the capture does not count the twin's "
+          f"offset operations: node types {ref_nodes}")
+    k3_ops, _ = device_events(lambda: cpk.compact_rows(a, b, counts, 8192))
+    check(len(k3_ops) <= 1,
+          f"compact_rows made {len(k3_ops)} device operations: {k3_ops}")
     torch.cuda.synchronize()
     emit({"phase": 6, "k2a_vs_twin": "exact", "k2a_cases": cases,
           "text_partition_vs_scipy": "equal", "k2b_vs_twin": "exact",
-          "k2b_ladder_levels": len(pairs), "k3_vs_twin": "exact",
-          "k3_cases": k3_cases, "max_abs_err": 0})
+          "k2b_ladder_levels": {c: len(t) for c, t in ladders.items()},
+          "k2b_vs_k2a": "equal from the ladder's seed and an own-index "
+                        "seed, twice", "k2b_invalid_seed": "exact",
+          "k3_vs_twin": "exact", "k3_cases": k3_cases,
+          "k3_device_ops_per_call": {
+              "captured_graph_nodes": len(k3_nodes),
+              "twin_offsets_captured_graph_nodes": len(ref_nodes),
+              "torch_profiler": len(k3_ops) or None}, "max_abs_err": 0})
     return pairs, labels
 
 
@@ -619,7 +864,30 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
     return text_bin, img, res.labels, counts
 
 
-def phase8_text_times(card: str, text_bin, img, labels, pairs):
+def launch_floor_ms() -> float:
+    """One trivial launch through ctypes, back to back: K3's entry on an
+    8-row table with every output allocated beforehand."""
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    dev = torch.device("cuda", 0)
+    table = torch.zeros((8, 8), dtype=torch.int32, device=dev)
+    counts = torch.ones((8,), dtype=torch.int32, device=dev)
+    out = torch.empty((128,), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    lib = cpk._kernel_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (table.data_ptr(), table.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), out.data_ptr(), total.data_ptr(), ok.data_ptr(),
+            8, 8, 16, stream)
+
+    def launch():
+        check(lib.compv_compact_rows(*args) == 0, "trivial launch failed")
+
+    return cuda_ms(launch, reps=20, inner=200)
+
+
+def phase8_text_times(card: str, text_bin, img, labels, pairs, launches):
     from compv_tpu_torch.features.ccl import (CclConfig,
                                               ccl_features_from_labels,
                                               label_components)
@@ -627,14 +895,20 @@ def phase8_text_times(card: str, text_bin, img, labels, pairs):
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
 
-    rows = {
-        "ccl_label_text_ms": cuda_ms(lambda: label_components(text_bin),
-                                     reps=20, inner=10),
-        "ccl_boxes_text_ms": cuda_ms(
-            lambda: ccl_features_from_labels(labels, CclConfig()), reps=20),
-        "mser_text_ms": cuda_ms(lambda: mser_detect(img, MserConfig()),
-                                reps=5),
+    calls = {
+        "ccl_label_text": lambda: label_components(text_bin),
+        "ccl_boxes_text": lambda: ccl_features_from_labels(labels,
+                                                           CclConfig()),
+        "mser_text": lambda: mser_detect(img, MserConfig()),
     }
+    rows = {
+        "ccl_label_text_ms": cuda_ms(calls["ccl_label_text"], reps=20,
+                                     inner=10),
+        "ccl_boxes_text_ms": cuda_ms(calls["ccl_boxes_text"], reps=20),
+        "mser_text_ms": cuda_ms(calls["mser_text"], reps=5),
+    }
+    profiles = {name: device_profile(fn, rows[f"{name}_ms"])
+                for name, fn in calls.items()}
     fg = text_bin != 0
     idx = torch.arange(fg.numel(), dtype=torch.int32,
                        device=fg.device).reshape(fg.shape)
@@ -648,20 +922,54 @@ def phase8_text_times(card: str, text_bin, img, labels, pairs):
 
     times = {
         "K2a": (cuda_ms(lambda: ck.ccl_label(text_bin), reps=20, inner=10),
-                cuda_ms(lambda: ck.label_ref(fg, idx, 8), reps=5)),
+                cuda_ms(lambda: ck.label_ref(fg, idx, 8), reps=5),
+                device_ms(lambda: ck.ccl_label(text_bin))),
         "K2b": (cuda_ms(seeded_all(ck.ccl_label_seeded), reps=10) / len(pairs),
-                cuda_ms(seeded_all(ck.label_ref), reps=3) / len(pairs)),
+                cuda_ms(seeded_all(ck.label_ref), reps=3) / len(pairs),
+                device_ms(seeded_all(ck.ccl_label_seeded), 1) / len(pairs)),
         "K3": (cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192), reps=20,
                        inner=10),
-               cuda_ms(lambda: cpk.compact_ref(a, b, counts, 8192), reps=20)),
+               cuda_ms(lambda: cpk.compact_ref(a, b, counts, 8192), reps=20),
+               device_ms(lambda: cpk.compact_rows(a, b, counts, 8192))),
     }
-    emit({"phase": 8, "card": card, **rows,
+    # K2b level by level, and the device time of its passes over the ladder
+    per_level = [cuda_ms(lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5,
+                         inner=10) * 1e3 for f, i in pairs]
+    passes = {}
+    for name, us in device_events(seeded_all(ck.ccl_label_seeded))[0]:
+        passes[name] = passes.get(name, 0.0) + us / len(pairs)
+    k3_host_us = host_us(lambda: cpk.compact_rows(a, b, counts, 8192))
+    empty_host_us = host_us(lambda: torch.empty(
+        (65536,), dtype=torch.int32, device=fg.device))
+    n = fg.numel()
+    total = int(cpk.compact_ref(a, b, counts, 8192)[2])
+    # bytes: the mask and the seed read once, the label map written once;
+    # the records K3 copies, in and out, and its counts. Operations: about
+    # ten int32 operations a pixel (index, compares, one find step) and
+    # two a copied record, far below the bytes' time.
+    bounds = {
+        "K2a": bound(n + 4 * n, 10 * n, INT32_OPS_PER_S),
+        "K2b": bound(n + 4 * n + 4 * n, 10 * n, INT32_OPS_PER_S),
+        "K3": bound(4 * counts.numel() + 2 * 2 * 4 * total + 5, 2 * 2 * total,
+                    INT32_OPS_PER_S),
+    }
+    emit({"phase": 8, "card": card, **rows, "profiles": profiles,
           **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
           **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
+          **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
+          **{f"{k}_bound_us": v["bound_ms"] * 1e3 for k, v in bounds.items()},
           "k2b_per": "launch, mean over the text ladder's "
                      f"{len(pairs)} changed levels",
+          "k2b_per_level_us": per_level,
+          "k2b_device_us_per_pass": passes,
+          "k3_host_us": k3_host_us, "torch_empty_host_us": empty_host_us,
+          "launch_floor_us": launch_floor_ms() * 1e3,
+          "launches_per_call": {"label_components": {"K2a": launches["K2a"]},
+                                "ccl_features": {"K2a": launches["K2a"],
+                                                 "K3": launches["K3"]},
+                                "mser_detect": {"K2b": launches["K2b"]}},
           "timing": "median of CUDA-event timings after warm-up"})
-    return times
+    return times, bounds
 
 
 # ---------------------------------------------------------------------------
@@ -954,24 +1262,89 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
     args = sht_args(edges, 1.0, 1.0)
     times = {
         "K4": (cuda_ms(lambda: hk.sht_accumulate(*args), reps=20, inner=10),
-               cuda_ms(lambda: hk.sht_accumulate_ref(*args), reps=10)),
+               cuda_ms(lambda: hk.sht_accumulate_ref(*args), reps=10),
+               device_ms(lambda: hk.sht_accumulate(*args))),
         "K5": (cuda_ms(lambda: ls.strip_label_counts(text_labels, 256),
                        reps=20, inner=10),
                cuda_ms(lambda: ls.strip_label_counts_ref(text_labels, 256),
-                       reps=10)),
+                       reps=10),
+               device_ms(lambda: ls.strip_label_counts(text_labels, 256))),
+    }
+    # K4: the edge list (x, y, weight) and the trig table read, the
+    # accumulator written; a vote (fused multiply-add, multiply, add,
+    # multiply, round, add) is seven fp32 operations, one per valid edge and
+    # theta. K5: the label map read, the strip records written; about four
+    # int32 operations a pixel.
+    slots, valid, n_theta = int(args[0].numel()), int(args[2].sum()), args[3]
+    acc = hk.sht_accumulate(*args)
+    k5_out = ls.strip_label_counts(text_labels, 256)
+    bounds = {
+        "K4": bound(3 * 4 * slots + 2 * 4 * n_theta + 4 * acc.numel(),
+                    7 * valid * n_theta, FP32_OPS_PER_S),
+        "K5": bound(4 * text_labels.numel()
+                    + sum(t.numel() * t.element_size() for t in k5_out),
+                    4 * text_labels.numel(), INT32_OPS_PER_S),
     }
     emit({"phase": 11, "card": card, **rows,
-          "k4_edge_slots": int(args[0].numel()),
-          "k4_valid_edges": int(args[2].sum()),
+          "k4_edge_slots": slots, "k4_valid_edges": valid,
+          **{f"{k}_bound_us": v["bound_ms"] * 1e3 for k, v in bounds.items()},
           **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
           **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
+          **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
           "k4_at": "720p scene's Canny edge list, 1 deg, rho 1",
           "k5_at": "text binary's 8-conn labels, rounds 256",
           "timing": "median of CUDA-event timings after warm-up"})
-    return times
+    return times, bounds
+
+
+def text_kernel_times(package_root: str) -> int:
+    """K2a, K2b (mean and per level over the text ladder) and K3's wrapper
+    at the text scene's shapes, by CUDA events, and K2b's and K3's device
+    time by the profiler, from the package under ``package_root``."""
+    sys.path.insert(0, package_root)
+    from compv_tpu_torch.device import require_cuda
+    from compv_tpu_torch.features.mser import MserConfig
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+
+    dev = require_cuda()
+    _, text = scenes()
+    text_bin = torch.from_numpy((text < 128).astype(np.uint8) * 255).to(dev)
+    pairs = [(fg, init) for fg, init, _ in ladder(
+        torch.from_numpy(text).to(dev), MserConfig())]
+    a, b, counts = run_tables(ck.ccl_label(text_bin), 128)
+    for fg, init in pairs:
+        check(torch.equal(ck.ccl_label_seeded(fg, init), ck.ccl_label(fg)),
+              "K2b != K2a on a level of the text ladder")
+
+    def seeded_all():
+        for fg, init in pairs:
+            ck.ccl_label_seeded(fg, init)
+
+    emit({"package_root": os.path.abspath(package_root),
+          "card": card_line(),
+          "K2b_device_us": device_ms(seeded_all, 1) / len(pairs) * 1e3,
+          "K3_device_us": device_ms(
+              lambda: cpk.compact_rows(a, b, counts, 8192)) * 1e3,
+          "K2a_us": cuda_ms(lambda: ck.ccl_label(text_bin), reps=20,
+                            inner=10) * 1e3,
+          "K2b_us": cuda_ms(seeded_all, reps=20) / len(pairs) * 1e3,
+          "K2b_levels": len(pairs),
+          "K2b_per_level_us": [cuda_ms(
+              lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5, inner=10)
+              * 1e3 for f, i in pairs],
+          "K3_us": cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192),
+                           reps=20, inner=10) * 1e3,
+          "timing": "median of CUDA-event timings after warm-up"})
+    return 0
 
 
 def main() -> int:
+    if "--text-kernel-times" in sys.argv[1:]:
+        root = ROOT
+        if "--package-root" in sys.argv:
+            root = sys.argv[sys.argv.index("--package-root") + 1]
+        return text_kernel_times(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
@@ -980,21 +1353,35 @@ def main() -> int:
     err = phase2_kernel_vs_twin(dev, scene)
     phase3_goldens(dev)
     cfg, img1, img2, k1_launches = phase4_slice(dev, scene)
-    kernel_ms, twin_ms = phase5_times(dev, card, cfg, img1, img2)
+    k1_times, k1_bound = phase5_times(dev, card, cfg, img1, img2)
     pairs, labels = phase6_ccl_kernels_vs_twins(dev, text)
     text_bin, img, labels, launches = phase7_text_slice(dev, text, len(pairs))
-    times = phase8_text_times(card, text_bin, img, labels, pairs)
+    times, bounds = phase8_text_times(card, text_bin, img, labels, pairs,
+                                      launches)
     k45_err = phase9_hough_kernels_vs_twins(dev, scene, text, pairs, labels)
     gray, edges, board, launches["K4"], launches["K5"] = phase10_hough_slice(
         dev, scene, text)
-    times.update(phase11_hough_times(card, gray, edges, board, labels))
+    k45_times, k45_bounds = phase11_hough_times(card, gray, edges, board,
+                                                labels)
+    times.update(k45_times)
+    bounds.update(k45_bounds)
     launches["K1"] = k1_launches
-    times["K1"] = (kernel_ms, twin_ms)
+    times["K1"] = k1_times
+    bounds["K1"] = k1_bound
     errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0, **k45_err}
+    # library_ms: no single PyTorch call computes any of the six functions
+    # (K4's twin is a bin computation plus scatter_add_, K5's a torch.unique
+    # per strip plus a bincount; FAST, the labelers and the ragged copy
+    # have none)
+    emit({"profiler": PROFILER, "note": "windows that held no "
+          "device event were taken again; a fallback is a reading made "
+          "without the profiler (CUDA events) or left null"})
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[kid], "max_abs_err": errs[kid],
-        "ms": times[kid][0], "plain_ms": times[kid][1]}
+        "ms": times[kid][0], "plain_ms": times[kid][1],
+        "device_ms": times[kid][2], "bound_ms": bounds[kid]["bound_ms"],
+        "bound_by": bounds[kid]["bound_by"], "library_ms": None}
         for kid, (name, source, replaces) in KERNELS.items()]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu",

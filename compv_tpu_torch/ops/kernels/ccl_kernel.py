@@ -6,11 +6,21 @@ Contract of both: a (H, W) foreground mask and an i32 ``init`` map give a
 (H, W) i32 map holding, at each foreground pixel, the minimum of ``init``
 over the pixel's 4- or 8-connected component, and -1 at background. K2a is
 the case ``init = row * W + col``: each component is labelled by its
-minimum flat index. At each foreground pixel, ``init`` must be the flat
-index of a foreground pixel of the same component: its own, or the label
-it had at an earlier level of a nested ladder (MSER's use). The twin's
-pointer jumping reads labels as pixel addresses and relies on that; the
-kernel takes any i32 ``init``.
+minimum flat index.
+
+Precondition of K2b, the JAX function's own: at each foreground pixel p,
+``init[p]`` is p's flat index or the converged label p had at an earlier
+level of a nested ladder (MSER's use), i.e. the minimum flat index of a
+foreground subset of p's component that contains p. Then ``init[p] <= p``,
+``init[init[p]] == init[p]``, and the minimum of ``init`` over a component
+is the component's minimum flat index: the seeded answer equals the
+unseeded one on the same mask, and the seed only says how much of the work
+is already done. The twin's pointer jumping reads labels as pixel addresses
+and relies on this; the kernel takes the seed as its starting forest (a
+warm-started union-find) and relies on it too. For memory safety the
+kernel replaces a seed outside ``[0, p]`` or on a background pixel by p; a
+seed that names a pixel of another component gives an undefined labeling in
+the kernel, the twin and the TPU kernel alike.
 
 The twin is the XLA solver the JAX package runs off the TPU
 (``compv_tpu/features/ccl.py:79-164``) op for op: segmented run-min sweeps
@@ -49,7 +59,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.compv_ccl_label.argtypes = [p, p, i, i, i, p]
         lib.compv_ccl_label.restype = i
-        lib.compv_ccl_label_seeded.argtypes = [p, p, p, p, i, i, i, p]
+        lib.compv_ccl_label_seeded.argtypes = [p, p, p, i, i, i, p]
         lib.compv_ccl_label_seeded.restype = i
         _lib = lib
     return _lib
@@ -222,8 +232,9 @@ def ccl_label(binary: torch.Tensor, connectivity: int = 8,
 def ccl_label_seeded(binary: torch.Tensor, init: torch.Tensor,
                      connectivity: int = 8, max_iterations: int = 64
                      ) -> torch.Tensor:
-    """K2b: (H, W) mask + (H, W) i32 init -> (H, W) i32 minimum of init over
-    each component, -1 at background."""
+    """K2b: (H, W) mask + (H, W) i32 init (own flat index, or the label of
+    an earlier nested level, at each foreground pixel) -> (H, W) i32 minimum
+    of init over each component, -1 at background."""
     fg = _foreground(binary)
     _connectivity(connectivity)
     h, w = fg.shape
@@ -237,12 +248,11 @@ def ccl_label_seeded(binary: torch.Tensor, init: torch.Tensor,
     out = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     if h * w == 0:
         return out
-    minv = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     lib = _kernel_lib()
     with torch.cuda.device(fg.device):
         rc = lib.compv_ccl_label_seeded(
-            fg.data_ptr(), init.data_ptr(), out.data_ptr(), minv.data_ptr(),
-            h, w, connectivity, _stream_ptr(fg.device))
+            fg.data_ptr(), init.data_ptr(), out.data_ptr(), h, w,
+            connectivity, _stream_ptr(fg.device))
     _raise_on(rc, "compv_ccl_label_seeded")
     ccl_label_seeded.launches += 1
     return out

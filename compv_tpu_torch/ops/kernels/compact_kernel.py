@@ -13,11 +13,15 @@ clamped so that every write stays in bounds, and the frame is to be
 discarded; only the slots before ``(cap8 - K / 8) * 8`` are then defined,
 since later ones may be overwritten by the clamped rows.
 
-The offsets (a ``torch.cumsum`` of the chunk counts) are computed outside
-the kernel for both, as the JAX wrapper computes them outside its kernel;
-the kernel does the ragged copy. The twin is the same prefix sum plus an
-indexed copy in which, where clamped rows overlap, the later row wins (the
-TPU kernel's sequential grid order).
+The JAX wrapper computes the offsets (the prefix sum of the chunk counts,
+the clamp, ``total`` and ``ok``) beside its kernel, and ``jax.jit`` fuses
+those lines into the program around it. Eager PyTorch has no such fusion:
+sent from Python they were about 13 small launches around one copy. So
+the kernel computes them itself, and ``compact_rows`` on a CUDA tensor is
+one device operation: check, ``torch.empty``, launch. The twin keeps the
+offsets as tensor code (``_offsets``) plus an indexed copy in which, where
+clamped rows overlap, the later row wins (the TPU kernel's sequential grid
+order).
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
 use) or the call raises; CPU tensors go to the twin. ``compact_rows.launches``
@@ -41,7 +45,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("compact_kernel")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_compact_rows.argtypes = [p, p, p, p, p, p, i, i, p]
+        lib.compv_compact_rows.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.compv_compact_rows.restype = i
         _lib = lib
     return _lib
@@ -60,8 +64,9 @@ def _check(a, b, counts, cap8) -> None:
                          f"got {k}")
     if tuple(counts.shape) != (h,):
         raise ValueError(f"counts must be ({h},), got {tuple(counts.shape)}")
-    if cap8 < 1:
-        raise ValueError(f"cap8 must be positive, got {cap8}")
+    if cap8 < max(k // 8, 1):
+        raise ValueError(f"cap8 must hold one full row ({k // 8} chunks), "
+                         f"got {cap8}")
     if not a.device == b.device == counts.device:
         raise ValueError("a, b and counts must be on one device")
     if a.device.type not in ("cpu", "cuda"):
@@ -114,19 +119,21 @@ def compact_rows(a: torch.Tensor, b: torch.Tensor, counts: torch.Tensor,
     if a.device.type == "cpu":
         return compact_ref(a, b, counts, cap8)
     h, k = a.shape
-    a, b = a.contiguous(), b.contiguous()
+    a, b, counts = a.contiguous(), b.contiguous(), counts.contiguous()
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("record tables must be 16-byte aligned")
-    nch, off8, total, ok = _offsets(counts, k, cap8)
     oa = torch.empty((cap8 * 8,), dtype=torch.int32, device=a.device)
     ob = torch.empty((cap8 * 8,), dtype=torch.int32, device=a.device)
     if h == 0:
+        _, _, total, ok = _offsets(counts, k, cap8)
         return oa, ob, total, ok
+    total = torch.empty((), dtype=torch.int32, device=a.device)
+    ok = torch.empty((), dtype=torch.bool, device=a.device)
     lib = _kernel_lib()
     with torch.cuda.device(a.device):
         rc = lib.compv_compact_rows(
-            a.data_ptr(), b.data_ptr(), off8.data_ptr(), nch.data_ptr(),
-            oa.data_ptr(), ob.data_ptr(), h, k,
+            a.data_ptr(), b.data_ptr(), counts.data_ptr(), oa.data_ptr(),
+            ob.data_ptr(), total.data_ptr(), ok.data_ptr(), h, k, cap8,
             torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compv_compact_rows launch failed: cudaError {rc}")

@@ -174,18 +174,22 @@ def test_reference_nonconvergence_raises():
         ccl.label_components(torch.from_numpy(img), 4, 256).numpy(), oracle)
 
 
+def _ladder_gray(img_kind):
+    if img_kind == "scene":
+        return make_test_image()[:90, :120]
+    if img_kind == "snake":
+        return np.where(_snake(40, 52) > 0, 10, 200).astype(np.uint8)
+    # uniform gray: the levels sweep the density through both percolation
+    # thresholds (0.59 4-connected, 0.41 8-connected)
+    return np.random.default_rng(4).integers(0, 256, (64, 80), dtype=np.uint8)
+
+
 @pytest.mark.parametrize("connectivity", [4, 8])
 @pytest.mark.parametrize("img_kind", ["random", "snake", "scene"])
 def test_label_components_seeded_exact(connectivity, img_kind):
     """A nested ladder: each level seeded by the previous level's labels
     (own flat index at new pixels), as MSER runs it."""
-    if img_kind == "scene":
-        gray = make_test_image()[:90, :120]
-    elif img_kind == "snake":
-        gray = np.where(_snake(40, 52) > 0, 10, 200).astype(np.uint8)
-    else:
-        gray = np.random.default_rng(4).integers(0, 256, (64, 80),
-                                                 dtype=np.uint8)
+    gray = _ladder_gray(img_kind)
     idx = np.arange(gray.size, dtype=np.int32).reshape(gray.shape)
     prev = np.full(gray.shape, -1, np.int32)
     for t in range(15, 256, 30):
@@ -200,6 +204,165 @@ def test_label_components_seeded_exact(connectivity, img_kind):
         np.testing.assert_array_equal(got.numpy(),
                                       _oracle_labels(fg, connectivity))
         prev = want
+
+
+def _nested_ladder(gray, connectivity, levels=range(15, 256, 30)):
+    """(fg, init) per level, each seeded by the level before (oracle labels;
+    own flat index at new pixels), as MSER builds them."""
+    idx = np.arange(gray.size, dtype=np.int32).reshape(gray.shape)
+    prev = np.full(gray.shape, -1, np.int32)
+    for t in levels:
+        fg = (gray <= t).astype(np.uint8)
+        yield fg, np.where(prev >= 0, prev, idx).astype(np.int32)
+        prev = _oracle_labels(fg, connectivity).astype(np.int32)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("img_kind", ["random", "snake", "scene"])
+def test_seeded_equals_unseeded_on_nested_ladders(connectivity, img_kind):
+    """What licenses a warm start: under the seed's precondition the seeded
+    labeling is the unseeded one, in the reference and in the port. (Rounds
+    enough for both pointer stages near percolation.)"""
+    for fg, init in _nested_ladder(_ladder_gray(img_kind), connectivity):
+        oracle = _oracle_labels(fg, connectivity)
+        jseed = jccl.label_components_seeded(jnp.asarray(fg),
+                                             jnp.asarray(init), connectivity,
+                                             1000)
+        jplain = jccl.label_components(jnp.asarray(fg), connectivity, 1000)
+        np.testing.assert_array_equal(np.asarray(jseed), np.asarray(jplain))
+        np.testing.assert_array_equal(np.asarray(jseed), oracle)
+        seeded = ccl.label_components_seeded(torch.from_numpy(fg),
+                                             torch.from_numpy(init),
+                                             connectivity, 1000)
+        plain = ccl.label_components(torch.from_numpy(fg), connectivity, 1000)
+        assert torch.equal(seeded, plain)
+        np.testing.assert_array_equal(seeded.numpy(), oracle)
+        # the precondition itself: a depth-one forest toward smaller indices
+        on = fg.reshape(-1) > 0
+        flat = init.reshape(-1)
+        idx = np.arange(fg.size)
+        assert (flat[on] <= idx[on]).all() and on[flat[on]].all()
+        np.testing.assert_array_equal(flat[flat[on]], flat[on])
+
+
+def _warm_union_find_model(fg, init, connectivity, rng):
+    """The seeded kernel's algorithm, run sequentially: the sanitising seed
+    pass with its run starts, exactly the unions its merge rules make (each with the parent
+    compare first) in a shuffled order, and the read-only flatten. Returns
+    the labels and the number of unions that got past the compare."""
+    h, w = fg.shape
+    on = fg.reshape(-1) > 0
+    n = h * w
+    idx = np.arange(n)
+    s = init.reshape(-1).astype(np.int64)
+    bad = (s < 0) | (s > idx)
+    bad |= ~on[np.where(bad, 0, s)]
+    parent = np.where(on, np.where(bad, idx, s), -1)
+    # own-seed pixels point at the first of their run of such pixels inside
+    # the 32-pixel row segment
+    fresh = (parent == idx).reshape(h, w)
+    for y in range(h):
+        for x0 in range(0, w, 32):
+            start = None
+            for x in range(x0, min(x0 + 32, w)):
+                start = (x if start is None else start) if fresh[y, x] else None
+                if start is not None:
+                    parent[y * w + x] = y * w + start
+
+    m = fg > 0
+    pad = np.pad(m, 1)
+    west, north = pad[1:-1, :-2], pad[:-2, 1:-1]
+    nw, ne = pad[:-2, :-2], pad[:-2, 2:]
+    flat = idx.reshape(h, w)
+    edges = [(flat[m & west], flat[m & west] - 1)]
+    if connectivity == 4:
+        take = m & north & ~(west & nw)
+        edges.append((flat[take], flat[take] - w))
+    else:
+        take = m & west & ~north & ne
+        edges.append((flat[take], flat[take] - w + 1))
+        take = m & ~west & north
+        edges.append((flat[take], flat[take] - w))
+        take = m & ~west & ~north & nw
+        edges.append((flat[take], flat[take] - w - 1))
+        take = m & ~west & ~north & ne
+        edges.append((flat[take], flat[take] - w + 1))
+    a = np.concatenate([e[0] for e in edges])
+    b = np.concatenate([e[1] for e in edges])
+    order = rng.permutation(a.size)
+
+    def find(x):                       # path splitting, as find_root
+        p = parent[x]
+        while p != x:
+            gp = parent[p]
+            if gp != p:
+                parent[x] = gp
+            x, p = p, gp
+        return x
+
+    real = 0
+    for i, j in zip(a[order].tolist(), b[order].tolist()):
+        if parent[i] == parent[j]:
+            continue
+        real += 1
+        ri, rj = find(i), find(j)
+        if ri != rj:
+            parent[max(ri, rj)] = min(ri, rj)
+    out = parent.copy()
+    for i in np.flatnonzero(on).tolist():
+        x = i
+        while parent[x] != x:          # read only
+            x = parent[x]
+        out[i] = x
+    return out.reshape(h, w), real
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("img_kind", ["random", "snake", "scene"])
+def test_warm_union_find_model_equals_twin_and_scipy(connectivity, img_kind):
+    """The seeded kernel's rule set, where no kernel can run: a sequential
+    model of it equals the twin and scipy on every level of the ladders,
+    from the ladder's seed and from a cold one; a level that changes
+    nothing leaves no union past the parent compare."""
+    rng = np.random.default_rng(17)
+    for fg, init in _nested_ladder(_ladder_gray(img_kind), connectivity):
+        got, _ = _warm_union_find_model(fg, init, connectivity, rng)
+        want = ccl_kernel.label_ref(torch.from_numpy(fg > 0),
+                                    torch.from_numpy(init), connectivity,
+                                    1000)
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(got, _oracle_labels(fg, connectivity))
+        # own-index seed (a cold start) gives the same labels
+        cold = np.arange(fg.size, dtype=np.int32).reshape(fg.shape)
+        got_cold, _ = _warm_union_find_model(fg, cold, connectivity, rng)
+        np.testing.assert_array_equal(got_cold, got)
+        same = np.where(got >= 0, got, cold).astype(np.int32)
+        got_same, real = _warm_union_find_model(fg, same, connectivity, rng)
+        np.testing.assert_array_equal(got_same, got)
+        assert real == 0
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_warm_union_find_model_sanitises_bad_seeds(connectivity):
+    """Seeds below 0, above the pixel's own index or on background are
+    replaced by the own index, so the labels stay those of the mask."""
+    rng = np.random.default_rng(23)
+    fg = _random_bin(8, 0.5)
+    n = fg.size
+    good = _oracle_labels(fg, connectivity).astype(np.int32)
+    init = np.where(good >= 0, good, 0).astype(np.int32).reshape(-1)
+    on = np.flatnonzero(fg.reshape(-1))
+    off = np.flatnonzero(fg.reshape(-1) == 0)
+    hit = rng.choice(on, 400, replace=False)
+    init[hit[:100]] = -7
+    init[hit[100:200]] = n + 5
+    init[hit[200:300]] = np.minimum(hit[200:300] + 1 + rng.integers(0, 50, 100),
+                                    n - 1)
+    init[hit[300:]] = off[np.searchsorted(off, hit[300:]) - 1]  # bg below p
+    init[off] = rng.integers(-2 ** 31, 2 ** 31 - 1, off.size)   # ignored
+    got, _ = _warm_union_find_model(fg, init.reshape(fg.shape), connectivity,
+                                    rng)
+    np.testing.assert_array_equal(got, good)
 
 
 def test_labeler_wrapper_checks():
@@ -283,6 +446,44 @@ def test_compact_twin_equals_prefix_sum_oracle(cap8):
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     assert int(got[2]) == want[2] and bool(got[3]) == want[3]
     assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+
+
+@pytest.mark.parametrize("h,k,cap8,case,fits", [
+    (1, 8, 4, "one row", True), (7, 16, 64, "below a block of rows", True),
+    (9, 16, 64, "one past a block of rows", True),
+    (1182, 128, 8192, "sparse", True), (9, 16, 64, "zero counts", True),
+    (9, 16, 64, "counts above K", True), (40, 24, 30, "overflow", False),
+    (1182, 128, 8192, "overflow", False),
+    (9, 16, 2, "capacity of one row", False)])
+def test_compact_twin_edge_cases(h, k, cap8, case, fits):
+    """The cases the one-launch kernel must match, held on the twin against
+    the row-by-row oracle: H around the kernel's 8-row blocks, empty rows,
+    counts past the record width, frames that overflow."""
+    rs = np.random.default_rng(h * 131 + k)
+    if case == "zero counts":
+        counts = np.zeros(h, np.int32)
+    elif case == "counts above K":
+        counts = rs.integers(k, 3 * k, h).astype(np.int32)
+    else:
+        top = k // 2 if case == "sparse" else k + 9
+        counts = rs.integers(0, top, h).astype(np.int32)
+        counts[rs.random(h) < 0.2] = 0
+    a = rs.integers(-2 ** 31, 2 ** 31, (h, k), dtype=np.int64).astype(np.int32)
+    b = rs.integers(0, 10 ** 6, (h, k)).astype(np.int32)
+    want = _compact_oracle(a, b, counts, cap8)
+    assert want[3] == fits
+    got = compact_kernel.compact_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                     torch.from_numpy(counts), cap8)
+    assert int(got[2]) == want[2] and bool(got[3]) == want[3]
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def test_compact_rejects_capacity_below_one_row():
+    t = torch.zeros((4, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one full row"):
+        compact_kernel.compact_rows(t, t, torch.zeros(4, dtype=torch.int32), 3)
 
 
 def test_compact_twin_matches_reference_prefix():

@@ -153,6 +153,111 @@ def test_ccl_seeded_kernel_equals_twin(dev, connectivity):
         prev = want
 
 
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_ccl_seeded_kernel_is_warm_started_k2a(dev, connectivity):
+    """On every level of a nested ladder the seeded kernel gives the
+    unseeded kernel's labels, from the ladder's seed and from an own-index
+    seed alike, and the same labels when it runs again."""
+    rs = np.random.default_rng(14)
+    for img in (_scene(96, 128, seed=6),
+                rs.integers(0, 256, (300, 517), dtype=np.uint8)):
+        prev = torch.full(img.shape, -1, dtype=torch.int32, device=dev)
+        idx = torch.arange(img.size, dtype=torch.int32,
+                           device=dev).reshape(img.shape)
+        for t in range(20, 256, 20):
+            fg = torch.from_numpy(img <= t).to(dev)
+            init = torch.where(prev >= 0, prev, idx)
+            want = ccl_kernel.ccl_label(fg, connectivity)
+            got = ccl_kernel.ccl_label_seeded(fg, init, connectivity)
+            again = ccl_kernel.ccl_label_seeded(fg, init, connectivity)
+            cold = ccl_kernel.ccl_label_seeded(fg, idx, connectivity)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), t
+            assert torch.equal(again, got), t
+            assert torch.equal(cold, want), t
+            prev = got
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_ccl_seeded_kernel_sanitises_bad_seeds(dev, connectivity):
+    """Seeds below 0, past the pixel's own index or on a background pixel
+    count as the own index: in bounds, and the labels of the mask."""
+    rs = np.random.default_rng(15)
+    fg = rs.random((120, 333)) < 0.5
+    n = fg.size
+    want = ccl_kernel.label_ref(torch.from_numpy(fg), torch.arange(
+        n, dtype=torch.int32).reshape(fg.shape), connectivity, 1000)
+    init = torch.where(want >= 0, want, 0).reshape(-1).numpy().copy()
+    on = np.flatnonzero(fg.reshape(-1))
+    off = np.flatnonzero(~fg.reshape(-1))
+    hit = rs.choice(on[on > off[0]], 4000, replace=False)
+    init[hit[:1000]] = -1
+    init[hit[1000:2000]] = 2 ** 31 - 1
+    init[hit[2000:3000]] = np.minimum(hit[2000:3000] + 1, n - 1)
+    init[hit[3000:]] = off[np.searchsorted(off, hit[3000:]) - 1]
+    init[off] = rs.integers(-2 ** 31, 2 ** 31 - 1, off.size)   # never read
+    got = ccl_kernel.ccl_label_seeded(
+        torch.from_numpy(fg).to(dev),
+        torch.from_numpy(init.reshape(fg.shape)).to(dev), connectivity)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("h,k,cap8,case", [
+    (1, 8, 4, "one row"), (7, 16, 64, "below a block of rows"),
+    (9, 16, 64, "one past a block of rows"), (1182, 128, 8192, "sparse"),
+    (9, 16, 64, "zero counts"), (9, 16, 64, "counts above K"),
+    (40, 24, 30, "overflow"), (1182, 128, 8192, "overflow"),
+    (9, 16, 2, "capacity of one row")])
+def test_compact_kernel_edge_cases(dev, h, k, cap8, case):
+    rs = np.random.default_rng(h * 131 + k)
+    if case == "zero counts":
+        counts = np.zeros(h, np.int32)
+    elif case == "counts above K":
+        counts = rs.integers(k, 3 * k, h).astype(np.int32)
+    else:
+        top = k // 2 if case == "sparse" else k + 9
+        counts = rs.integers(0, top, h).astype(np.int32)
+        counts[rs.random(h) < 0.2] = 0
+    a = torch.from_numpy(rs.integers(-2 ** 31, 2 ** 31, (h, k),
+                                     dtype=np.int64).astype(np.int32))
+    b = torch.from_numpy(rs.integers(0, 10 ** 6, (h, k)).astype(np.int32))
+    counts = torch.from_numpy(counts)
+    want = compact_kernel.compact_ref(a, b, counts, cap8)
+    got = compact_kernel.compact_rows(a.to(dev), b.to(dev), counts.to(dev),
+                                      cap8)
+    torch.cuda.synchronize()
+    total, ok = int(want[2]), bool(want[3])
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.bool
+    assert int(got[2]) == total and bool(got[3]) == ok
+    assert int(got[3].view(torch.uint8)) in (0, 1)
+    defined = total if ok else max(cap8 - k // 8, 0) * 8
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g[:defined].cpu(), w[:defined])
+
+
+def test_compact_rows_is_one_device_operation(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = torch.full((1182,), 5, dtype=torch.int32, device=dev)
+    table = torch.zeros((1182, 128), dtype=torch.int32, device=dev)
+    compact_kernel.compact_rows(table, table, counts, 8192)
+    torch.cuda.synchronize()
+    ops = []
+    for _ in range(3):      # a window can come back without device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            compact_kernel.compact_rows(table, table, counts, 8192)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    if not ops:
+        pytest.skip("torch.profiler recorded no device event in 3 windows")
+    assert len(ops) == 1, ops
+
+
 def test_compact_kernel_equals_twin(dev):
     rs = np.random.default_rng(8)
     lbl = ccl_kernel.label_ref(torch.from_numpy(rs.random((120, 300)) < 0.4),
