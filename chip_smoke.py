@@ -5,9 +5,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 With --text-kernel-times it only times the labelers and the compactor at
-the text scene's shapes and prints one JSON line; --package-root DIR takes
-compv_tpu_torch from another checkout, so that two versions of a kernel
-can be timed in turns on one card:
+the text scene's shapes, the FAST kernel at level 0 of the 720p scene
+(two-output entry) and the SHT accumulator at the scene's edge list, and
+prints one JSON line; --package-root DIR takes compv_tpu_torch from another
+checkout, so that two versions of a kernel can be timed in turns on one
+card:
 
     python3 chip_smoke.py --text-kernel-times [--package-root DIR]
 
@@ -15,7 +17,11 @@ Phases, each printing its lines before the last:
   1. device and build: the card's name and power limit, the five kernel
      sources built in parallel (one nvcc each), their ptxas lines;
   2. kernel vs twin: the FAST kernel K1 against its plain PyTorch twin, by
-     exact equality, on the 720p scene and its pyramid and on odd sizes;
+     exact equality, on the 720p scene and its pyramid, uniform noise,
+     0/255 checkerboards of period 1 and 3, odd sizes, widths of every
+     residue mod 4 at heights 1, 7, 8, 9 and a misaligned base, at
+     thresholds 0, 20, 40, 255 and N = 9, 12; what the kernel's early-out
+     did on the scene and on noise, counted by the kernel and by its model;
   3. goldens on the card: goldens/goldens.json's FAST tuples, homography,
      md5, Otsu, CCL-features and MSER values, computed by the port on the GPU;
   4. the ORB slice: slam.frontend.match_pair on a 720x1282 scene paired
@@ -23,7 +29,8 @@ Phases, each printing its lines before the last:
      kernel's launch count, geometric and determinism checks, and the same
      pair through the kernel's twins;
   5. times of the ORB slice: match_pair and the two-output K1 launch against
-     its twin, as medians of CUDA-event timings;
+     its twin, as medians of CUDA-event timings; K1's device time and bound
+     on each of the pair's 8 pyramid levels;
   6. CCL kernels vs twins: the labeler K2a / K2b and the row compactor K3
      against their twins, exact, on bench.py's 1122x1182 text scene (its
      binary at both connectivities, every changed level of its MSER ladder
@@ -47,7 +54,9 @@ Phases, each printing its lines before the last:
      launch floor (one trivial launch through ctypes, back to back);
   9. Hough kernels vs twins: the SHT accumulator K4 against its twin,
      exact, on the 720p scene's Canny edge list at 1 and 0.5 degree, a
-     dense random map, an empty list and a 2160x3840 map; the strip label
+     dense random map, an empty list, a 2160x3840 map, lists of 1 and of
+     ragged lengths, a list whose edges are scattered with weights above 1,
+     arrays off 16 bytes, and 1 and 181 thetas; the strip label
      counter K5 against its twin, exact, on the text binary's labels and
      every changed level of the MSER ladder, and on a truncating case; K5's
      merged counts against torch.bincount and CclResult.area;
@@ -58,7 +67,9 @@ Phases, each printing its lines before the last:
      truth; K5's own path (the per-strip histograms of every ladder level);
  11. times of the Hough slice (bench.py's canny3x3, hough_sht and
      hough_kht rows, find_chessboard_corners) and of K4 and K5 against
-     their twins, as medians of CUDA-event timings.
+     their twins, as medians of CUDA-event timings; K4 also at the
+     checkerboard's 16,384-slot list, and one sht_accumulate call as the
+     nodes of a captured CUDA graph (one kernel).
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -380,24 +391,62 @@ def kernel_vs_twin(img: torch.Tensor, threshold: int, n: int) -> float:
 def phase2_kernel_vs_twin(dev, scene: np.ndarray) -> float:
     from compv_tpu_torch.image.pyramid import pyramid_sizes
     from compv_tpu_torch.image.scale import scale_bilinear
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
 
     img = torch.from_numpy(scene).to(dev)
     images = [img] + [scale_bilinear(img, lh, lw)
                       for lh, lw in pyramid_sizes(720, 1282, 8, 0.83)[1:]]
     rs = np.random.default_rng(1)
+
+    def noise(shape):
+        return torch.from_numpy(rs.integers(0, 256, shape,
+                                            dtype=np.uint8)).to(dev)
+
     for shape in ((1, 1), (7, 7), (33, 47), (299, 401)):
+        images.append(noise(shape))
+    n_first = len(images)
+    noise_720p = noise((720, 1282))
+    images.append(noise_720p)
+    yy, xx = np.mgrid[0:131, 0:259]
+    for period in (1, 3):
         images.append(torch.from_numpy(
-            rs.integers(0, 256, shape, dtype=np.uint8)).to(dev))
+            (((yy // period + xx // period) % 2) * 255).astype(np.uint8)
+        ).to(dev))
+    # every residue of the width mod 4 (and around the 62-wide tile) at
+    # heights below, at and above the 7 rows a strength needs
+    for hh in (1, 7, 8, 9):
+        for ww in (60, 61, 62, 63, 64, 65, 66, 67):
+            images.append(noise((hh, ww)))
+    # a base address off 4 bytes: a view into a larger buffer
+    flat = noise((3 + 100 * 77,))
+    images.extend(flat[off:off + 100 * 77].view(100, 77) for off in (1, 2, 3))
     err = 0.0
     cases = 0
-    for im in images:
-        for threshold in (20, 40):
+    for i, im in enumerate(images):
+        # the earlier cases as they were, the new ones also at the extremes
+        for threshold in ((20, 40) if i < n_first else (0, 20, 255)):
             for n in (9, 12):
                 err = max(err, kernel_vs_twin(im, threshold, n))
                 cases += 1
+    # the early-out: the kernel's own counts against the model of its
+    # geometry, and the share of warp rows it left with neither side
+    early = {}
+    for name, im in (("scene_720p", img), ("noise_720p", noise_720p)):
+        got = fk.early_out_counts(im, 20, 9)
+        want = fk._early_out_counts_ref(im, 20)
+        check(torch.equal(got, want), f"K1's early-out counts {got.tolist()}"
+              f" != the model's {want.tolist()} on {name}")
+        tested, skipped, brighter, darker = got.tolist()
+        passing = [int(c.sum()) for c in fk.early_out_candidates(im, 20)]
+        early[name] = {"warp_rows_tested": tested,
+                       "skipped_share": skipped / tested,
+                       "brighter_share": brighter / tested,
+                       "darker_share": darker / tested,
+                       "pixels_passing_a_test_share":
+                           sum(passing) / im.numel()}
     torch.cuda.synchronize()
     emit({"phase": 2, "kernel_vs_twin": "exact", "images": len(images),
-          "cases": cases, "max_abs_err": err})
+          "cases": cases, "max_abs_err": err, "k1_early_out": early})
     return err
 
 
@@ -566,7 +615,39 @@ def phase4_slice(dev, scene: np.ndarray):
     return cfg, img1, img2, launches
 
 
+def k1_bound(img: torch.Tensor, threshold: int = 20) -> dict:
+    """K1's bound on ``img`` at N = 9, two-output entry. Bytes: the u8
+    image read, two f32 maps written. Operations, in the cheapest
+    formulation known (two pixels an instruction as 16-bit lanes, three-way
+    min / max, the windows on the raw circle pixels so that no tap is
+    subtracted), per pixel pair: the opposite-pair test 24 (8 maxima and 8
+    minima of c[k], c[k+8], 4 + 4 three-way reductions), the combination 6
+    (p + t, the two biased differences, two maxima against the floor, the
+    final subtraction), NMS 6 (three three-way maxima, one maximum, compare,
+    select): 36 a pair, 18 a pixel; and 40 more a pair and side (16 + 16
+    three-way window minima, 8 three-way maxima over the starts) only where
+    a pixel of the pair passes that side's test, since every other pixel's
+    strength is exactly 0. ``worst_ms`` is the same with every pair needing
+    both sides."""
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+
+    def pairs(cand):
+        cand = torch.nn.functional.pad(cand, (0, cand.shape[1] % 2))
+        return int((cand[:, 0::2] | cand[:, 1::2]).sum())
+
+    n = img.numel()
+    brighter, darker = fk.early_out_candidates(img, threshold)
+    out = bound(n + 2 * 4 * n, 18 * n + 40 * (pairs(brighter) + pairs(darker)),
+                INT32_OPS_PER_S)
+    out["worst_ms"] = bound(n + 2 * 4 * n, 18 * n + 80 * ((n + 1) // 2),
+                            INT32_OPS_PER_S)["bound_ms"]
+    return out
+
+
 def phase5_times(dev, card: str, cfg, img1, img2):
+    from compv_tpu_torch.features.orb import PATCH_DIAMETER
+    from compv_tpu_torch.image.pyramid import pyramid_sizes
+    from compv_tpu_torch.image.scale import scale_bilinear
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.slam.frontend import match_pair
 
@@ -580,21 +661,39 @@ def phase5_times(dev, card: str, cfg, img1, img2):
 
     twin_ms = cuda_ms(twin, reps=20, inner=5)
     dev_ms = device_ms(lambda: fk.fast_strengths_and_nms(img1, 20, 9))
-    # bytes: the u8 image read, two f32 maps written. Operations per pixel
-    # at n = 9: 16 subtractions, a windowed minimum in 4 doubling steps of
-    # 16 and a maximum over 16 for each of the two sides, the clip, and 9
-    # for the 3x3 NMS; int32.
-    n = img1.numel()
-    k1_bound = bound(n + 2 * 4 * n, (2 * (16 + 4 * 16 + 15) + 2 + 9) * n,
-                     INT32_OPS_PER_S)
+    bound0 = k1_bound(img1)
+    # the level images of the pair's first frame, as the ORB loop makes them
+    levels = []
+    h, w = img1.shape
+    for lv, (lh, lw) in enumerate(pyramid_sizes(h, w, cfg.orb.levels,
+                                                cfg.orb.scale_factor)):
+        if lh < PATCH_DIAMETER + 2 or lw < PATCH_DIAMETER + 2:
+            continue
+        im = img1 if lv == 0 else scale_bilinear(img1, lh, lw)
+        bnd = k1_bound(im)
+        us = dev_ms * 1e3 if lv == 0 else device_ms(
+            lambda im=im: fk.fast_strengths_and_nms(im, 20, 9)) * 1e3
+        levels.append({"shape": [lh, lw], "device_us": us,
+                       "bound_us": bnd["bound_ms"] * 1e3,
+                       "bound_by": bnd["bound_by"],
+                       "worst_case_bound_us": bnd["worst_ms"] * 1e3})
+    check(all(lv["bound_us"] <= lv["device_us"] for lv in levels),
+          f"a K1 bound above its device time: {levels}")
     emit({"phase": 5, "card": card, "match_pair_720p_ms": pair_ms,
           "k1_two_output_level0_us": kernel_ms * 1e3,
           "k1_device_us": dev_ms * 1e3,
           "k1_twin_level0_us": twin_ms * 1e3,
-          "k1_bound_us": k1_bound["bound_ms"] * 1e3,
-          "k1_bound_by": k1_bound["bound_by"], "timing": "median of 20 "
-          "CUDA-event timings after warm-up"})
-    return (kernel_ms, twin_ms, dev_ms), k1_bound
+          "k1_bound_us": bound0["bound_ms"] * 1e3,
+          "k1_bound_by": bound0["bound_by"],
+          "k1_worst_case_bound_us": bound0["worst_ms"] * 1e3,
+          "k1_levels": levels,
+          "k1_device_us_per_match_pair":
+              2 * sum(lv["device_us"] for lv in levels),
+          "k1_gap_us_per_match_pair":
+              2 * sum(lv["device_us"] - lv["bound_us"] for lv in levels),
+          "timing": "median of 20 CUDA-event timings after warm-up; device "
+                    "times by the profiler"})
+    return (kernel_ms, twin_ms, dev_ms), bound0
 
 
 # ---------------------------------------------------------------------------
@@ -1073,6 +1172,41 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
     check(torch.equal(got, hk.sht_accumulate_ref(*args))
           and int(got.abs().sum()) == 0,
           "K4 on an empty edge list")
+    # the shapes of the split: lists of 1, of ragged lengths around a group
+    # of 2048 slots and 8 x 512 and past 65,536; edges scattered over the
+    # list with weights above 1; arrays off 16 bytes; 1 and 181 thetas
+    base = sht_args(maps["scene_720p_canny"], 1.0, 1.0)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    perm = torch.randperm(65536, generator=gen).to(dev)
+    heavy = base[2] * torch.randint(1, 5, (65536,), generator=gen,
+                                    dtype=torch.int32).to(dev)
+    extra = {"scattered_weights_1_to_4": (base[0][perm], base[1][perm],
+                                          heavy[perm], *base[3:]),
+             "off_16_bytes": (base[0][1:], base[1][1:], base[2][1:],
+                              *base[3:]),
+             "theta_1": (*base[:3], 1, base[4], base[5],
+                         base[6][:1].contiguous(), base[7][:1].contiguous()),
+             "theta_181": (*base[:3], 181, base[4], base[5],
+                           torch.cat([base[6], base[6][:1]]),
+                           torch.cat([base[7], base[7][:1]]))}
+    for e in (1, 3, 2047, 2049, 4097, 10000, 65535):
+        extra[f"E_{e}"] = (base[0][perm[:e]], base[1][perm[:e]],
+                           base[2][perm[:e]], *base[3:])
+    long = torch.cat([perm, perm[:4465]])
+    extra["E_70001"] = (base[0][long], base[1][long], base[2][long],
+                        *base[3:])
+    for name, args in extra.items():
+        got, want = hk.sht_accumulate(*args), hk.sht_accumulate_ref(*args)
+        err["K4"] = max(err["K4"], float((got - want).abs().max()))
+        check(torch.equal(got, want), f"K4 != twin on {name}")
+        check(int(got.sum()) == args[3] * int(args[2].sum()),
+              f"K4 lost votes on {name}")
+        k4_cases.append({"map": name, "n_theta": args[3],
+                         "slots": int(args[0].numel()),
+                         "votes_per_theta": int(args[2].sum())})
+    plans = {name: hk.sht_plan(n_theta, n_rho, dev) for name, n_theta, n_rho
+             in (("720p_1deg", 180, 2942), ("720p_half_deg", 360, 2942),
+                 ("2160x3840_1deg", 180, 8813), ("theta_1", 1, 2942))}
 
     # K5 on the text binary's labels and every changed ladder level
     k5_maps = [("text_binary", text_labels, 256)]
@@ -1107,7 +1241,9 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
           "K5's merged text areas != CclResult.area")
     torch.cuda.synchronize()
     emit({"phase": 9, "k4_vs_twin": "exact", "k4_cases": k4_cases,
-          "k4_empty": "exact", "k5_vs_twin": "exact",
+          "k4_empty": "exact",
+          "k4_thetas_per_cta_and_ctas_per_cluster": plans,
+          "k5_vs_twin": "exact",
           "k5_maps": len(k5_maps), "k5_truncating_maps": truncating,
           "k5_merged_vs_bincount": merged_checked,
           "k5_vs_ccl_area": f"equal on {n_valid} components",
@@ -1260,6 +1396,13 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
             reps=20),
     }
     args = sht_args(edges, 1.0, 1.0)
+    # the checkerboard's list: Canny at 40 / 100, 16,384 slots
+    board_args = sht_args(canny(board, CheckerboardConfig().canny), 1.0, 1.0,
+                          16384)
+    board_us = device_ms(lambda: hk.sht_accumulate(*board_args)) * 1e3
+    k4_nodes = captured_nodes(lambda: hk.sht_accumulate(*args))
+    check(k4_nodes == [0], "sht_accumulate made other device operations "
+          f"than one kernel: node types {k4_nodes}")
     times = {
         "K4": (cuda_ms(lambda: hk.sht_accumulate(*args), reps=20, inner=10),
                cuda_ms(lambda: hk.sht_accumulate_ref(*args), reps=10),
@@ -1292,23 +1435,32 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
           **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
           **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
           "k4_at": "720p scene's Canny edge list, 1 deg, rho 1",
+          "k4_board_device_us": board_us,
+          "k4_board_slots": int(board_args[0].numel()),
+          "k4_board_valid_edges": int(board_args[2].sum()),
+          "k4_captured_graph_nodes": len(k4_nodes),
           "k5_at": "text binary's 8-conn labels, rounds 256",
           "timing": "median of CUDA-event timings after warm-up"})
     return times, bounds
 
 
 def text_kernel_times(package_root: str) -> int:
-    """K2a, K2b (mean and per level over the text ladder) and K3's wrapper
-    at the text scene's shapes, by CUDA events, and K2b's and K3's device
-    time by the profiler, from the package under ``package_root``."""
+    """From the package under ``package_root``: K2a, K2b (mean and per
+    level over the text ladder) and K3's wrapper at the text scene's
+    shapes, K1's two-output entry at level 0 of the 720p scene and K4 at
+    the scene's Canny edge list, by CUDA events, and K1's, K2b's, K3's and
+    K4's device time by the profiler."""
     sys.path.insert(0, package_root)
     from compv_tpu_torch.device import require_cuda
+    from compv_tpu_torch.features.canny import CannyConfig, canny
     from compv_tpu_torch.features.mser import MserConfig
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
 
     dev = require_cuda()
-    _, text = scenes()
+    scene, text = scenes()
     text_bin = torch.from_numpy((text < 128).astype(np.uint8) * 255).to(dev)
     pairs = [(fg, init) for fg, init, _ in ladder(
         torch.from_numpy(text).to(dev), MserConfig())]
@@ -1316,6 +1468,14 @@ def text_kernel_times(package_root: str) -> int:
     for fg, init in pairs:
         check(torch.equal(ck.ccl_label_seeded(fg, init), ck.ccl_label(fg)),
               "K2b != K2a on a level of the text ladder")
+    gray = torch.from_numpy(scene).to(dev)
+    raw = fk._strengths_ref(gray, 20, 9)
+    for got, want in zip(fk.fast_strengths_and_nms(gray, 20, 9),
+                         (raw, fk._nms_ref(raw))):
+        check(torch.equal(got, want), "K1 != twin on the 720p scene")
+    sht = sht_args(canny(gray, CannyConfig()), 1.0, 1.0)
+    check(torch.equal(hk.sht_accumulate(*sht), hk.sht_accumulate_ref(*sht)),
+          "K4 != twin on the 720p scene's edge list")
 
     def seeded_all():
         for fg, init in pairs:
@@ -1323,9 +1483,16 @@ def text_kernel_times(package_root: str) -> int:
 
     emit({"package_root": os.path.abspath(package_root),
           "card": card_line(),
+          "K1_device_us": device_ms(
+              lambda: fk.fast_strengths_and_nms(gray, 20, 9)) * 1e3,
+          "K4_device_us": device_ms(lambda: hk.sht_accumulate(*sht)) * 1e3,
           "K2b_device_us": device_ms(seeded_all, 1) / len(pairs) * 1e3,
           "K3_device_us": device_ms(
               lambda: cpk.compact_rows(a, b, counts, 8192)) * 1e3,
+          "K1_us": cuda_ms(lambda: fk.fast_strengths_and_nms(gray, 20, 9),
+                           reps=20, inner=50) * 1e3,
+          "K4_us": cuda_ms(lambda: hk.sht_accumulate(*sht), reps=20,
+                           inner=10) * 1e3,
           "K2a_us": cuda_ms(lambda: ck.ccl_label(text_bin), reps=20,
                             inner=10) * 1e3,
           "K2b_us": cuda_ms(seeded_all, reps=20) / len(pairs) * 1e3,
@@ -1335,7 +1502,8 @@ def text_kernel_times(package_root: str) -> int:
               * 1e3 for f, i in pairs],
           "K3_us": cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192),
                            reps=20, inner=10) * 1e3,
-          "timing": "median of CUDA-event timings after warm-up"})
+          "timing": "median of CUDA-event timings after warm-up; device "
+                    "times by the profiler"})
     return 0
 
 

@@ -13,51 +13,322 @@
 // the constant rho_step with a multiplication by its f32 reciprocal. Each
 // step here is an explicit round-to-nearest intrinsic (__fmul_rn,
 // __fmaf_rn, __fadd_rn), so nvcc can neither contract nor reassociate
-// them, and rintf rounds half to even as jnp.round does.
+// them, and rintf rounds half to even as jnp.round does. Votes are integer
+// atomics, so their order does not enter the result.
 //
-// What bounds it: at 720p (65,536 edge slots, 180 thetas, n_rho 2942) the
-// work is 11.8 M votes, each a few flops and one shared-memory atomic; the
-// edge list (768 KB) is re-read once per theta from L2. The Pallas kernel's
-// MXU one-hot contraction and its per-theta rho window were devices for
-// the TPU's VMEM and MXU and are not kept: on Hopper the histogram fits in
-// shared memory (11.8 KB at 720p, ~35 KB at 4K) and integer shared atomics
-// are cheap and order-free, so the result is deterministic.
+// What bounds it: at 720p (65,536 edge slots of which some 25,000 hold an
+// edge, 180 thetas, n_rho 2942) the bytes are the 768 KB list and the 2.1 MB
+// accumulator, under a microsecond of HBM time, and the real work 4.5 M
+// votes of seven fp32 operations each, half a microsecond. What a kernel
+// pays here is something else: a thread that walks the list slot by slot
+// waits for L2 once a slot, and a CTA a theta re-reads the whole list 180
+// times; and the votes themselves, shared-memory atomics, run at about
+// 4.5 a clock an SM here whatever the split of the work and whether or not
+// neighbouring slots vote for neighbouring bins (measured with the list
+// shuffled), so 4.5 M votes over 132 SMs are some 3.5 us. The Pallas
+// kernel's MXU one-hot contraction and per-theta rho window were devices
+// for the TPU's VMEM and MXU and are not kept.
 //
-// Design: one CTA per theta row; its int32 histogram of n_rho bins lives in
-// dynamic shared memory; threads stride over the edge list (neighbouring
-// threads on neighbouring edges, so loads coalesce), skip zero weights and
-// atomicAdd into shared memory; then the row is written out coalesced.
+// Design: theta-blocked, edge-split, reduced inside a thread-block cluster.
+//   * A CTA takes a block of T thetas and one S-th of the edge list: of the
+//     groups of 128 slots (four a lane, one 16-byte load per array) those
+//     whose number is its rank modulo S, dealt round its 16 warps, so that
+//     a list whose edges are a prefix spreads evenly over CTAs and warps.
+//     A warp loads four groups with independent vector loads, all started
+//     before any is used, and keeps them in registers; groups without a
+//     weight are dropped at once (w is any i32 vector: nothing relies on
+//     the edges being a prefix; the groups that hold one are moved to the
+//     front). So the list is read once per theta block, not once per
+//     theta, and no load waits for another.
+//   * It votes for its T thetas from registers into T histograms of n_rho
+//     i32 bins in dynamic shared memory: per theta all bins of the live
+//     groups first, then their atomics, no branch between (a zero weight
+//     adds nothing), rounding by a magic-number add in place of rintf and
+//     the float-to-int conversion.
+//   * Why clusters: the S CTAs of a cluster hold S partial histograms of
+//     the same T thetas. After cluster.sync() each CTA sums its S-th of
+//     the T x n_rho bins over the S peers through distributed shared
+//     memory, 16 bytes a load, and writes that slice of acc coalesced.
+//     Every element of acc is written exactly once, so the accumulator
+//     needs no zeroing pass and the call is one device operation; global
+//     atomics onto a zeroed accumulator would cost a second one.
+//   * T and S come from the shapes (plan()): one CTA an SM in one wave.
+//     Zeroing and reducing the histograms costs in proportion to T x
+//     n_rho a CTA, which grows with S when the grid is to fill the card,
+//     while a small S means more passes over a longer share of the list:
+//     S = 4 measured best at 720p (8 when the thetas are too few to fill
+//     the card otherwise), and T is the least for which the theta blocks
+//     times S fit the SMs, within the shared memory a block may opt into
+//     (180 thetas on 132 SMs: T = 6, 30 blocks, 120 CTAs).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 4;                     // slots of a group a thread
+constexpr int kGroup = 32 * kVec;           // slots a warp takes at once
+constexpr int kPass = 4;                    // groups a warp and pass
+constexpr int kMaxT = 16;
+constexpr int kMaxS = 8;
 
-__global__ void __launch_bounds__(kThreads)
+// The votes of the first L of a warp's register-held groups for thetas
+// t0 .. t0 + nt: all 4 L bins of a theta first, then the 4 L atomics, no
+// branch between them. A zero weight adds nothing wherever its bin lies.
+template <int L>
+__device__ __forceinline__ void vote(
+    int32_t* hist, const float (&xs)[kPass][kVec],
+    const float (&ys)[kPass][kVec], const int32_t (&ws)[kPass][kVec],
+    const float* __restrict__ cos_t, const float* __restrict__ sin_t, int nt,
+    int n_rho, float rho_max, float inv_step) {
+  // rint(clamp(v)) == clamp(rint(v)) for integer bounds, and adding
+  // 1.5 * 2^23 to a float in [0, 2^22) rounds it to the nearest integer,
+  // ties to even, into the low mantissa bits: rintf and the conversion
+  // without the conversion unit. fmaxf sends a NaN to bin 0, like the
+  // conversion does.
+  constexpr float kMagic = 12582912.0f;
+  const float top = static_cast<float>(n_rho - 1);
+#pragma unroll 2
+  for (int t = 0; t < nt; ++t) {
+    const float c = __ldg(cos_t + t);
+    const float s = __ldg(sin_t + t);
+    const int row = t * n_rho - __float_as_int(kMagic);
+    int bin[L][kVec];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float rho = __fmaf_rn(c, xs[k][j], __fmul_rn(s, ys[k][j]));
+        const float v = __fmul_rn(__fadd_rn(rho, rho_max), inv_step);
+        bin[k][j] = __float_as_int(
+            __fadd_rn(fminf(fmaxf(v, 0.0f), top), kMagic));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        atomicAdd(&hist[row + bin[k][j]], ws[k][j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
     sht_accumulate(const float* __restrict__ x, const float* __restrict__ y,
                    const int32_t* __restrict__ w,
                    const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, int32_t* __restrict__ acc,
-                   int n_edges, int n_rho, float rho_max, float inv_step) {
-  extern __shared__ int32_t hist[];
-  const int t = blockIdx.x;
-  for (int b = threadIdx.x; b < n_rho; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
-  const float c = cos_t[t];
-  const float s = sin_t[t];
-  for (int e = threadIdx.x; e < n_edges; e += blockDim.x) {
-    const int32_t we = w[e];
-    if (we == 0) continue;
-    const float rho = __fmaf_rn(c, x[e], __fmul_rn(s, y[e]));
-    const float v = __fmul_rn(__fadd_rn(rho, rho_max), inv_step);
-    int bin = static_cast<int>(rintf(v));
-    bin = min(max(bin, 0), n_rho - 1);
-    atomicAdd(&hist[bin], we);
+                   int n_edges, int n_theta, int n_rho, float rho_max,
+                   float inv_step, int n_t, int vec_ok) {
+  extern __shared__ __align__(16) int32_t hist[];   // (n_t, n_rho)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_s = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t0 = blockIdx.x * n_t;
+  const int nt = min(n_t, n_theta - t0);
+  const int bins = nt * n_rho;
+  {
+    int4* h4 = reinterpret_cast<int4*>(hist);
+    for (int b = tid; b < bins / 4; b += kThreads)
+      h4[b] = make_int4(0, 0, 0, 0);
+    if (tid < (bins & 3)) hist[(bins & ~3) + tid] = 0;
   }
   __syncthreads();
-  int32_t* row = acc + static_cast<size_t>(t) * n_rho;
-  for (int b = threadIdx.x; b < n_rho; b += blockDim.x) row[b] = hist[b];
+
+  // group q (slots [q * kGroup, (q + 1) * kGroup)) belongs to the CTA of
+  // rank q % S and there to warp (q / S) % kWarps: neighbouring groups go
+  // to different CTAs, so a list whose edges are a prefix spreads evenly
+  const long long n_groups = (static_cast<long long>(n_edges) + kGroup - 1)
+                             / kGroup;
+  const long long stride = static_cast<long long>(n_s) * kWarps;
+  for (long long q0 = static_cast<long long>(warp) * n_s + rank;
+       q0 < n_groups; q0 += stride * kPass) {
+    float xs[kPass][kVec], ys[kPass][kVec];
+    int32_t ws[kPass][kVec];
+    if (vec_ok && (q0 + stride * (kPass - 1) + 1) * kGroup <= n_edges) {
+#pragma unroll
+      for (int k = 0; k < kPass; ++k) {
+        const long long e = (q0 + stride * k) * kGroup + lane * kVec;
+        const int4 wv = *reinterpret_cast<const int4*>(w + e);
+        const float4 xv = *reinterpret_cast<const float4*>(x + e);
+        const float4 yv = *reinterpret_cast<const float4*>(y + e);
+        ws[k][0] = wv.x, ws[k][1] = wv.y, ws[k][2] = wv.z, ws[k][3] = wv.w;
+        xs[k][0] = xv.x, xs[k][1] = xv.y, xs[k][2] = xv.z, xs[k][3] = xv.w;
+        ys[k][0] = yv.x, ys[k][1] = yv.y, ys[k][2] = yv.z, ys[k][3] = yv.w;
+      }
+    } else {   // the ragged end of the list, or arrays off 16 bytes
+#pragma unroll
+      for (int k = 0; k < kPass; ++k) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const long long e = (q0 + stride * k) * kGroup + lane * kVec + j;
+          const bool in = e < n_edges;
+          ws[k][j] = in ? w[e] : 0;
+          xs[k][j] = in ? x[e] : 0.0f;
+          ys[k][j] = in ? y[e] : 0.0f;
+        }
+      }
+    }
+    // the groups of the warp that hold a weight move to the front (a list
+    // whose edges are a prefix has them there already) and only they vote
+    bool live[kPass];
+#pragma unroll
+    for (int k = 0; k < kPass; ++k)
+      live[k] = __any_sync(0xffffffffu,
+                           (ws[k][0] | ws[k][1] | ws[k][2] | ws[k][3]) != 0);
+#pragma unroll
+    for (int a = 0; a < kPass - 1; ++a) {
+#pragma unroll
+      for (int b = kPass - 1; b > a; --b) {
+        if (live[b] && !live[b - 1]) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            const float tx = xs[b][j], ty = ys[b][j];
+            const int32_t tw = ws[b][j];
+            xs[b][j] = xs[b - 1][j], ys[b][j] = ys[b - 1][j];
+            ws[b][j] = ws[b - 1][j];
+            xs[b - 1][j] = tx, ys[b - 1][j] = ty, ws[b - 1][j] = tw;
+          }
+          live[b] = false, live[b - 1] = true;
+        }
+      }
+    }
+    int n_live = 0;
+#pragma unroll
+    for (int k = 0; k < kPass; ++k) n_live += live[k];
+    static_assert(kPass == 4, "the dispatch below lists the live counts");
+    if (n_live == 4)
+      vote<4>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
+              inv_step);
+    else if (n_live == 3)
+      vote<3>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
+              inv_step);
+    else if (n_live == 2)
+      vote<2>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
+              inv_step);
+    else if (n_live == 1)
+      vote<1>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
+              inv_step);
+  }
+
+  // the S partial histograms become this theta block's rows of acc: each
+  // CTA sums and writes its slice, four bins a load
+  cluster.sync();
+  const int per = ((bins + n_s - 1) / n_s + 3) & ~3;
+  const int b0 = min(bins, rank * per);
+  const int b1 = min(bins, b0 + per);
+  int32_t* out = acc + static_cast<size_t>(t0) * n_rho;
+  const bool out_vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int32_t* peers[kMaxS];
+#pragma unroll
+  for (int i = 0; i < kMaxS; ++i)
+    peers[i] = cluster.map_shared_rank(hist, (rank + i) % n_s);
+  for (int b = b0 + 4 * tid; b < b1; b += 4 * kThreads) {
+    if (b + 4 <= b1) {
+      int4 sum = make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int i = 0; i < kMaxS; ++i) {
+        if (i < n_s) {
+          const int4 v = *reinterpret_cast<const int4*>(peers[i] + b);
+          sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+        }
+      }
+      if (out_vec) {
+        *reinterpret_cast<int4*>(out + b) = sum;
+      } else {
+        out[b] = sum.x, out[b + 1] = sum.y;
+        out[b + 2] = sum.z, out[b + 3] = sum.w;
+      }
+    } else {
+      for (int e = b; e < b1; ++e) {   // the slice's last bins
+        int32_t sum = 0;
+#pragma unroll
+        for (int i = 0; i < kMaxS; ++i)
+          if (i < n_s) sum += peers[i][e];
+        out[e] = sum;
+      }
+    }
+  }
+  cluster.sync();   // no CTA leaves while a peer still reads its bins
+}
+
+int attribute(cudaDeviceAttr what) {
+  int device = 0, v = 0;
+  if (cudaGetDevice(&device) != cudaSuccess
+      || cudaDeviceGetAttribute(&v, what, device) != cudaSuccess)
+    return -1;
+  return v;
+}
+
+cudaLaunchConfig_t config(int n_theta, int n_rho, int n_t, int n_s,
+                          cudaLaunchAttribute* attr, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_theta + n_t - 1) / n_t, n_s, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(n_t) * n_rho * sizeof(int32_t);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = n_s;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// T thetas a CTA and S CTAs a cluster for an (n_theta, n_rho) accumulator
+// on the current device; the kernel's shared-memory attribute is left set
+// for them. Kept for the last shape asked.
+cudaError_t plan(int n_theta, int n_rho, int* n_t, int* n_s) {
+  static int key[3] = {-1, -1, -1}, val[2] = {0, 0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (key[0] == device && key[1] == n_theta && key[2] == n_rho) {
+    *n_t = val[0], *n_s = val[1];
+    return cudaSuccess;
+  }
+  const int optin = attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  const int sms = attribute(cudaDevAttrMultiProcessorCount);
+  if (optin < 0 || sms < 0) return cudaErrorInvalidDevice;
+  const long long row = static_cast<long long>(n_rho) * sizeof(int32_t);
+  if (row > optin) return cudaErrorInvalidValue;
+  // one CTA an SM and one wave: with S CTAs a cluster, T is the least for
+  // which the theta blocks times S fit the SMs. S = 4 unless the thetas
+  // are so few that 8 are needed to spread the list.
+  const int t_max = static_cast<int>(
+      optin / row < kMaxT ? optin / row : kMaxT);
+  int s = n_theta * 4 * 2 <= sms ? kMaxS : 4;
+  const long long need = (static_cast<long long>(n_theta) * s + sms - 1) / sms;
+  int t = static_cast<int>(need > t_max ? t_max : need);
+  for (;;) {
+    err = cudaFuncSetAttribute(sht_accumulate,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(t * row));
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = config(n_theta, n_rho, t, s, &attr, nullptr);
+    int resident = 0;
+    err = cudaOccupancyMaxActiveClusters(&resident, sht_accumulate, &cfg);
+    if (err == cudaSuccess && resident > 0) break;
+    cudaGetLastError();   // a refused shape is tried smaller, not reported
+    if (s > 1)
+      s /= 2;
+    else if (t > 1)
+      t /= 2;
+    else
+      return err != cudaSuccess ? err : cudaErrorLaunchOutOfResources;
+  }
+  key[0] = device, key[1] = n_theta, key[2] = n_rho;
+  val[0] = *n_t = t, val[1] = *n_s = s;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -74,21 +345,34 @@ int compv_sht_smem_optin(int device) {
   return v;
 }
 
+// The thetas a CTA (ts[0]) and the CTAs a cluster (ts[1]) that
+// compv_sht_accumulate takes for this shape on the current device.
+// Returns a cudaError_t.
+int compv_sht_plan(int n_theta, int n_rho, int* ts) {
+  if (n_theta <= 0 || n_rho <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(plan(n_theta, n_rho, &ts[0], &ts[1]));
+}
+
 // x, y: (n_edges,) f32; w: (n_edges,) i32; cos_t, sin_t: (n_theta,) f32;
 // inv_step: f32(1) / f32(rho_step); acc: (n_theta, n_rho) i32, every
-// element written. Returns the cudaError_t
-// of the launch (0 on success).
+// element written. Returns the cudaError_t of the launch (0 on success).
 int compv_sht_accumulate(const float* x, const float* y, const int32_t* w,
                          const float* cos_t, const float* sin_t, int32_t* acc,
                          int n_edges, int n_theta, int n_rho, float rho_max,
                          float inv_step, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_rho) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sht_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (n_theta <= 0) return static_cast<int>(cudaSuccess);
+  int n_t = 0, n_s = 0;
+  cudaError_t err = plan(n_theta, n_rho, &n_t, &n_s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sht_accumulate<<<n_theta, kThreads, smem, stream>>>(
-      x, y, w, cos_t, sin_t, acc, n_edges, n_rho, rho_max, inv_step);
+  const int vec_ok = ((reinterpret_cast<uintptr_t>(x)
+                       | reinterpret_cast<uintptr_t>(y)
+                       | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config(n_theta, n_rho, n_t, n_s, &attr, stream);
+  err = cudaLaunchKernelEx(&cfg, sht_accumulate, x, y, w, cos_t, sin_t, acc,
+                           n_edges, n_theta, n_rho, rho_max, inv_step, n_t,
+                           vec_ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,27 @@ that replaces ``compv_tpu/ops/pallas/fast_kernel.py:fast_strengths_nms_pallas``
 
 The twin, ``_strengths_ref`` + ``_nms_ref``, mirrors the XLA path the JAX
 detector runs (``compv_tpu/features/fast.py:_strengths_f32``, ``_nms_f32``)
-op for op; the kernel reproduces it bit for bit.
+op for op; the kernel reproduces it bit for bit by another route.
+
+The kernel's route: adding a constant commutes with min and max, so the arc
+windows run on the raw circle pixels (``max_s min_arc (c - p - t) = Mb - p
+- t`` with ``Mb = max_s min_arc c``, and ``p - t - Md`` with ``Md = min_s
+max_arc c`` for the darker side); two horizontally adjacent pixels share an
+instruction as 16-bit lanes; the windows are trees of Hopper's three-way
+DPX min / max; a block computes a 64 x 32 strength region for a 62 x 30
+output tile (64 x 16 for small images) and runs NMS from shared memory.
+What bounds it: bytes (one read, two f32 maps written) and packed integer
+min / max of the same order, so a few microseconds at 720p.
+
+The early-out, exact: for N >= 9 every arc of N contiguous circle points
+holds ``k`` or ``k + 8`` for each ``k`` in 0..7 (the 16 - N <= 7 points it
+leaves out are contiguous, so at most 6 apart, and ``k`` and ``k + 8`` are
+8 apart). So a brighter arc needs ``A = min_k max(c[k], c[k+8]) > p + t``
+and a darker one ``B = max_k min(c[k], c[k+8]) < p - t``; a pixel that
+passes neither has strength exactly 0. The kernel computes a side only for
+warp rows (64 pixels) in which some interior pixel passes that side's test;
+``early_out_counts`` reports what it did, ``early_out_candidates`` is the
+per-pixel test.
 
 Dispatch has no fallback: a CUDA tensor goes to the kernel (built at first
 use) or the call raises; a CPU tensor goes to the twin. ``launches`` counts
@@ -19,7 +39,8 @@ import torch.nn.functional as F
 
 from compv_tpu_torch.ops.kernels import _build
 
-__all__ = ["CIRCLE_OFFSETS", "fast_strengths_nms", "fast_strengths_and_nms"]
+__all__ = ["CIRCLE_OFFSETS", "geometry", "early_out_candidates",
+           "early_out_counts", "fast_strengths_nms", "fast_strengths_and_nms"]
 
 # (dy, dx) for the 16 circle pixels, reference order (fast_dete.cxx:221-238)
 CIRCLE_OFFSETS = (
@@ -28,6 +49,16 @@ CIRCLE_OFFSETS = (
     (3, 0), (3, -1), (2, -2), (1, -3),
     (0, -3), (-1, -3), (-2, -2), (-3, -1),
 )
+
+
+def geometry(h: int, w: int) -> tuple[int, int, int, int]:
+    """The kernel's strength region a block (width, height: one pixel pair
+    a lane, one row a warp and trip) and its output tile (the NMS ring
+    off) for an (h, w) image: 32 rows, or 16 under 400,000 pixels, where
+    too few blocks are in flight to hide a block's chain of latencies."""
+    rows = 16 if h * w < 400000 else 32
+    return 64, rows, 62, rows - 2
+
 
 # kernel launches since the counter was last set to 0
 launches = 0
@@ -44,6 +75,17 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.compv_fast_strengths_nms.restype = i
         lib.compv_fast_strengths_and_nms.argtypes = [p, p, p, i, i, i, i, p]
         lib.compv_fast_strengths_and_nms.restype = i
+        lib.compv_fast_early_out_counts.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.compv_fast_early_out_counts.restype = i
+        lib.compv_fast_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.compv_fast_geometry.restype = None
+        for shape in ((720, 1282), (412, 733), (1, 1), (400, 1000)):
+            tiles = (i * 4)()
+            lib.compv_fast_geometry(*shape, tiles)
+            if tuple(tiles) != geometry(*shape):
+                raise RuntimeError(
+                    f"fast_kernel.cu tiles {shape} as {tuple(tiles)}, this "
+                    f"module says {geometry(*shape)}")
         _lib = lib
     return _lib
 
@@ -101,6 +143,51 @@ def _nms_ref(s: torch.Tensor) -> torch.Tensor:
             nmax = v if nmax is None else torch.maximum(nmax, v)
     keep = (s > 0) & (nmax < s)
     return torch.where(keep & _interior(h, w, 3, s.device), s, 0.0)
+
+
+def early_out_candidates(img: torch.Tensor, threshold: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(H, W) bool maps of the interior pixels that pass the brighter and
+    the darker opposite-pair test; every other pixel has strength 0 at any
+    N >= 9."""
+    h, w = img.shape
+    f = img.to(torch.int32)
+    padded = F.pad(f, (3, 3, 3, 3))
+    taps = [padded[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+            for dy, dx in CIRCLE_OFFSETS]
+    a = b = None
+    for k in range(8):
+        hi = torch.maximum(taps[k], taps[k + 8])
+        lo = torch.minimum(taps[k], taps[k + 8])
+        a = hi if a is None else torch.minimum(a, hi)
+        b = lo if b is None else torch.maximum(b, lo)
+    inside = _interior(h, w, 3, img.device)
+    return (a > f + threshold) & inside, (b + threshold < f) & inside
+
+
+def _early_out_counts_ref(img: torch.Tensor, threshold: int) -> torch.Tensor:
+    """The kernel's early-out modelled on its geometry: of the warp rows
+    (``geometry(h, w)[0]`` strengths wide, from column ``bx * out_w - 1``) on
+    interior image rows, how many were tested, left with neither side
+    computed, had the brighter side computed, the darker side."""
+    h, w = img.shape
+    str_w, str_h, out_w, out_h = geometry(h, w)
+    dev = img.device
+    x0 = torch.arange(-(-w // out_w), device=dev) * out_w - 1
+    gy = (torch.arange(-(-h // out_h), device=dev)[:, None] * out_h - 1
+          + torch.arange(str_h, device=dev)[None, :]).reshape(-1)
+    gy = gy[(gy >= 3) & (gy < h - 3)]
+
+    def rows_any(cand):
+        csum = F.pad(cand.to(torch.int64).cumsum(1), (1, 0))
+        hit = csum[:, (x0 + str_w).clamp(0, w)] - csum[:, x0.clamp(0, w)]
+        return hit[gy] > 0
+
+    brighter, darker = (rows_any(c) for c in
+                        early_out_candidates(img, threshold))
+    return torch.stack([torch.tensor(brighter.numel(), device=dev),
+                        (~brighter & ~darker).sum(), brighter.sum(),
+                        darker.sum()]).to(torch.int64)
 
 
 def _check(img: torch.Tensor, threshold: int, n: int) -> None:
@@ -179,3 +266,30 @@ def fast_strengths_and_nms(img: torch.Tensor, threshold: int = 20, n: int = 9
     _raise_on(rc, "compv_fast_strengths_and_nms")
     launches += 1
     return raw, out
+
+
+def early_out_counts(img: torch.Tensor, threshold: int = 20, n: int = 9
+                     ) -> torch.Tensor:
+    """(4,) int64: the warp rows the kernel's early-out tested on ``img``,
+    those it left with neither side computed, those whose brighter side it
+    computed and those whose darker side. On the card the kernel counts
+    them itself while it computes both maps (one launch); a CPU tensor goes
+    to the model of the kernel's geometry."""
+    global launches
+    _check(img, threshold, n)
+    if img.device.type == "cpu":
+        return _early_out_counts_ref(img, int(threshold))
+    h, w = img.shape
+    counts = torch.zeros((4,), dtype=torch.int64, device=img.device)
+    if h * w == 0:
+        return counts
+    raw = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(img.device):
+        rc = lib.compv_fast_early_out_counts(
+            img.data_ptr(), raw.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            h, w, int(threshold), n, _stream_ptr(img.device))
+    _raise_on(rc, "compv_fast_early_out_counts")
+    launches += 1
+    return counts

@@ -21,6 +21,16 @@ since a CUDA operation with a Python scalar may round otherwise.
 The Pallas kernel counts a weight ``> 0`` as one vote; the XLA twin and
 this port add integer weights (the reference's only caller passes 0/1).
 
+The kernel is theta-blocked and edge-split: a CTA loads one S-th of the
+edge list once, with independent 16-byte loads into registers, and votes
+for a block of T thetas into T histograms in shared memory; the S CTAs of a
+thread-block cluster then sum their partial histograms through distributed
+shared memory, each writing its slice of the accumulator, so every element
+is written once and a call is one device operation. What bounds it is
+latency, not bytes (under a microsecond of HBM time at 720p): the design
+removes the chain of dependent L2 loads and the re-reading of the list
+once a theta. ``sht_plan`` gives the T and S the kernel takes for a shape.
+
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
 use) or the call raises; CPU tensors go to the twin.
 ``sht_accumulate.launches`` counts the calls that launched the kernel.
@@ -36,7 +46,7 @@ from compv_tpu_torch.ops.bincount import batched_weighted_bincount
 from compv_tpu_torch.ops.kernels import _build
 
 __all__ = ["fma_f32", "n_rho_bins", "rho_bins", "sht_accumulate",
-           "sht_accumulate_ref"]
+           "sht_accumulate_ref", "sht_plan"]
 
 _lib = None
 
@@ -51,6 +61,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.compv_sht_accumulate.restype = i
         lib.compv_sht_smem_optin.argtypes = [i]
         lib.compv_sht_smem_optin.restype = i
+        lib.compv_sht_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.compv_sht_plan.restype = i
         _lib = lib
     return _lib
 
@@ -133,13 +145,27 @@ def sht_accumulate_ref(x, y, w, n_theta: int, rho_max: float,
                                      n_rho_bins(rho_max, rho_step))
 
 
+def sht_plan(n_theta: int, n_rho: int, device) -> tuple[int, int]:
+    """(T, S): the thetas a CTA votes for and the CTAs a cluster (the
+    split of the edge list) that the kernel takes for an ``(n_theta,
+    n_rho)`` accumulator on the CUDA ``device``."""
+    lib = _kernel_lib()
+    ts = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        rc = lib.compv_sht_plan(n_theta, n_rho, ts)
+    if rc != 0:
+        raise RuntimeError(f"compv_sht_plan failed: cudaError {rc}")
+    return ts[0], ts[1]
+
+
 def sht_accumulate(x, y, w, n_theta: int, rho_max: float, rho_step: float,
                    cos_t, sin_t) -> torch.Tensor:
     """K4: (E,) f32 x, y and (E,) i32 weights -> (n_theta, n_rho) i32
     accumulator at the angles of the (n_theta,) f32 table ``cos_t`` /
-    ``sin_t``. The reference's ``theta_step``, ``w_img`` and ``h_img``
-    served its own trig table and per-theta rho window; this kernel takes
-    the table and needs no window."""
+    ``sin_t``, in one kernel that writes every element. The reference's
+    ``theta_step``, ``w_img`` and ``h_img`` served its own trig table and
+    per-theta rho window; this kernel takes the table and needs no
+    window."""
     _check(x, y, w, n_theta, cos_t, sin_t)
     if x.device.type == "cpu":
         return sht_accumulate_ref(x, y, w, n_theta, rho_max, rho_step,

@@ -54,6 +54,67 @@ def test_kernel_equals_twin(dev, shape, threshold, n):
     torch.cuda.synchronize()
 
 
+def _hard_images():
+    rs = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:131, 0:259]
+    out = {"noise": rs.integers(0, 256, (301, 517), dtype=np.uint8)}
+    for period in (1, 3):
+        out[f"checker_{period}"] = (((yy // period + xx // period) % 2)
+                                    * 255).astype(np.uint8)
+    # every residue of the width mod 4, around the kernel's 62-wide tile,
+    # at heights below, at and above the 7 rows a strength needs
+    for hh in (1, 7, 8, 9):
+        for ww in (60, 61, 62, 63, 64, 65, 66, 67):
+            out[f"{hh}x{ww}"] = rs.integers(0, 256, (hh, ww), dtype=np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("threshold", [0, 20, 255])
+@pytest.mark.parametrize("n", [9, 12])
+def test_kernel_equals_twin_on_hard_images(dev, threshold, n):
+    for name, im in _hard_images().items():
+        img = torch.from_numpy(im).to(dev)
+        raw = fast_kernel._strengths_ref(img, threshold, n)
+        sup = fast_kernel._nms_ref(raw)
+        got_raw, got_sup = fast_kernel.fast_strengths_and_nms(img, threshold,
+                                                              n)
+        assert torch.equal(got_raw, raw), name
+        assert torch.equal(got_sup, sup), name
+        assert torch.equal(fast_kernel.fast_strengths_nms(img, threshold, n),
+                           sup.to(torch.uint8)), name
+    torch.cuda.synchronize()
+
+
+def test_kernel_takes_a_misaligned_base(dev):
+    rs = np.random.default_rng(3)
+    flat = torch.from_numpy(rs.integers(0, 256, (3 + 100 * 77,),
+                                        dtype=np.uint8)).to(dev)
+    for off in (1, 2, 3):
+        img = flat[off:off + 100 * 77].view(100, 77)
+        raw = fast_kernel._strengths_ref(img, 20, 9)
+        got_raw, got_sup = fast_kernel.fast_strengths_and_nms(img, 20, 9)
+        assert torch.equal(got_raw, raw), off
+        assert torch.equal(got_sup, fast_kernel._nms_ref(raw)), off
+
+
+def test_early_out_counts_equal_the_model(dev):
+    """What the kernel's early-out did, counted by the kernel, against the
+    model of its geometry; flat regions are skipped, noise is not."""
+    images = {"scene": _scene(240, 320), "scene_720p": _scene(720, 1282),
+              **_hard_images()}
+    for name, im in images.items():
+        img = torch.from_numpy(im).to(dev)
+        got = fast_kernel.early_out_counts(img, 20, 9)
+        want = fast_kernel._early_out_counts_ref(img, 20)
+        assert torch.equal(got, want), name
+    flat = torch.full((240, 320), 90, dtype=torch.uint8, device=dev)
+    tested, skipped, _, _ = fast_kernel.early_out_counts(flat).tolist()
+    assert tested > 0 and skipped == tested
+    noise = torch.from_numpy(images["noise"]).to(dev)
+    tested, skipped, _, _ = fast_kernel.early_out_counts(noise).tolist()
+    assert skipped < 0.05 * tested
+
+
 def test_kernel_counts_its_launches(dev):
     img = torch.zeros((16, 16), dtype=torch.uint8, device=dev)
     before = fast_kernel.launches
@@ -357,6 +418,80 @@ def test_sht_kernel_equals_twin(dev, step, rho_step, n, h, w):
     assert got.shape == want.shape
     assert torch.equal(got, want)
     assert int(got.sum()) == theta_count(step) * int(wt.sum())
+
+
+@pytest.mark.parametrize("case", ["E_1", "E_3", "E_2047", "E_2049",
+                                  "E_4097", "E_70001", "scattered_heavy",
+                                  "off_16_bytes", "theta_1", "theta_181"])
+def test_sht_kernel_ragged_cases(dev, case):
+    """The shapes of the kernel's split: lists that end inside a group of
+    128 slots or a warp's four groups, edges scattered over the list with
+    weights above 1, arrays off 16 bytes, 1 and 181 thetas."""
+    rs = np.random.default_rng(17)
+    n = int(case[2:]) if case.startswith("E_") else 65536
+    h, w = 720, 1282
+    x = torch.from_numpy(rs.integers(0, w, n).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rs.integers(0, h, n).astype(np.float32)).to(dev)
+    wt = np.zeros(n, np.int32)
+    wt[:max(1, int(0.4 * n))] = 1
+    if case == "scattered_heavy":
+        wt = ((rs.random(n) < 0.4) * rs.integers(1, 5, n)).astype(np.int32)
+    wt = torch.from_numpy(wt).to(dev)
+    if case == "off_16_bytes":
+        x, y, wt = x[1:], y[1:], wt[1:]
+    cos_t, sin_t = theta_table(1.0, dev)
+    n_theta = 180
+    if case == "theta_1":
+        n_theta, cos_t, sin_t = 1, cos_t[:1].contiguous(), sin_t[:1].contiguous()
+    if case == "theta_181":
+        n_theta = 181
+        cos_t, sin_t = torch.cat([cos_t, cos_t[:1]]), torch.cat([sin_t,
+                                                                 sin_t[:1]])
+    args = (x, y, wt, n_theta, float(np.hypot(h, w)), 1.0, cos_t, sin_t)
+    got = hough_kernel.sht_accumulate(*args)
+    want = hough_kernel.sht_accumulate_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got.sum()) == n_theta * int(wt.sum())
+
+
+@pytest.mark.parametrize("n_theta,n_rho", [(180, 2942), (360, 2942),
+                                           (180, 8813), (1, 2942),
+                                           (181, 4202)])
+def test_sht_plan_fits_the_card(dev, n_theta, n_rho):
+    t, s = hough_kernel.sht_plan(n_theta, n_rho, dev)
+    optin = hough_kernel._kernel_lib().compv_sht_smem_optin(0)
+    assert t >= 1 and s in (1, 2, 4, 8)
+    assert t * n_rho * 4 <= optin
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert -(-n_theta // t) * s <= sms      # one wave, one CTA an SM
+
+
+def test_sht_accumulate_is_one_device_operation(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y, wt = (t.to(dev) for t in _edge_list(4, 65536, 720, 1282))
+    cos_t, sin_t = theta_table(1.0, dev)
+
+    def call():
+        return hough_kernel.sht_accumulate(
+            x, y, wt, 180, float(np.hypot(720, 1282)), 1.0, cos_t, sin_t)
+
+    call()
+    torch.cuda.synchronize()
+    ops = []
+    for _ in range(3):      # a window can come back without device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    if not ops:
+        pytest.skip("torch.profiler recorded no device event in 3 windows")
+    assert len(ops) == 1, ops
 
 
 def test_sht_kernel_raises_past_shared_memory(dev):

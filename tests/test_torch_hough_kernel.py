@@ -262,3 +262,104 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):   # ragged edge list
         hough_kernel.sht_accumulate(x, x[:3], w, 180, 5.0, 1.0, cos_t,
                                     sin_t)
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of the Hopper kernel's split (csrc/hough_kernel.cu): the
+# edge list dealt in groups of 128 slots to the S CTAs of a cluster, T
+# thetas a CTA, bins rounded by the magic-number add, S partial histograms
+# summed slice by slice, every element of the accumulator written once.
+
+_GROUP = 128
+
+
+def _magic_bins(x, y, cos_t, sin_t, rho_max, rho_step):
+    """(n_theta, E) int32 bins by the kernel's f32 sequence."""
+    rho = hough_kernel.fma_f32(cos_t[:, None], x[None, :],
+                               sin_t[:, None] * y[None, :]).numpy()
+    v = (rho + np.float32(rho_max)) * (np.float32(1) / np.float32(rho_step))
+    assert v.dtype == np.float32
+    top = np.float32(hough_kernel.n_rho_bins(rho_max, rho_step) - 1)
+    clamped = np.minimum(np.maximum(v, np.float32(0)), top)
+    magic = np.float32(12582912.0)
+    return (clamped + magic).view(np.int32) - magic.view(np.int32)
+
+
+def _split_model(x, y, wt, n_theta, rho_max, rho_step, cos_t, sin_t, t, s):
+    n_rho = hough_kernel.n_rho_bins(rho_max, rho_step)
+    e = x.numel()
+    bins_all = _magic_bins(x, y, cos_t, sin_t, rho_max, rho_step)
+    w = wt.numpy().astype(np.int64)
+    group_of = np.arange(e) // _GROUP
+    acc = np.full(n_theta * n_rho, -12345, np.int64)
+    written = np.zeros(n_theta * n_rho, np.int64)
+    for t0 in range(0, n_theta, t):
+        nt = min(t, n_theta - t0)
+        bins = nt * n_rho
+        partial = np.zeros((s, bins), np.int64)
+        for rank in range(s):
+            mine = np.flatnonzero(group_of % s == rank)
+            for k in range(nt):
+                np.add.at(partial[rank], k * n_rho + bins_all[t0 + k, mine],
+                          w[mine])
+        per = (-(-bins // s) + 3) & ~3
+        for rank in range(s):
+            b0 = min(bins, rank * per)
+            b1 = min(bins, b0 + per)
+            acc[t0 * n_rho + b0:t0 * n_rho + b1] = partial[:, b0:b1].sum(0)
+            written[t0 * n_rho + b0:t0 * n_rho + b1] += 1
+    assert (written == 1).all()
+    return acc.reshape(n_theta, n_rho)
+
+
+def _split_case(name):
+    rs = np.random.default_rng(31)
+    h, w = 60, 80
+    n = {"E_0": 0, "E_1": 1, "E_127": 127, "E_129": 129, "E_1000": 1000,
+         "E_4097": 4097}.get(name, 3000)
+    x = rs.integers(0, w, n).astype(np.float32)
+    y = rs.integers(0, h, n).astype(np.float32)
+    wt = np.zeros(n, np.int32)
+    wt[:int(0.4 * n)] = 1                           # a prefix, as hough_sht
+    if name == "scattered_heavy":                   # scattered, weights > 1
+        wt = (rs.random(n) < 0.4) * rs.integers(1, 5, n)
+    cos_t, sin_t = hough_trig.theta_table(1.0)
+    n_theta = 180
+    if name == "theta_1":
+        n_theta, cos_t, sin_t = 1, cos_t[:1], sin_t[:1]
+    if name == "theta_181":
+        n_theta = 181
+        cos_t, sin_t = torch.cat([cos_t, cos_t[:1]]), torch.cat([sin_t,
+                                                                 sin_t[:1]])
+    return (torch.from_numpy(x), torch.from_numpy(y),
+            torch.from_numpy(wt.astype(np.int32)), n_theta,
+            float(np.hypot(h, w)), 0.7 if name == "rho_0.7" else 1.0,
+            cos_t.contiguous(), sin_t.contiguous())
+
+
+@pytest.mark.parametrize("t,s", [(6, 4), (8, 8), (1, 8), (11, 4), (5, 3),
+                                 (16, 1)])
+@pytest.mark.parametrize("name", ["prefix", "E_0", "E_1", "E_127", "E_129",
+                                  "E_1000", "E_4097", "scattered_heavy",
+                                  "theta_1", "theta_181", "rho_0.7"])
+def test_split_model_equals_twin(name, t, s):
+    args = _split_case(name)
+    want = hough_kernel.sht_accumulate_ref(*args).numpy()
+    got = _split_model(*args, t, s)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == args[3] * int(args[2].sum())
+
+
+def test_magic_rounding_is_rint_then_clip():
+    """Clamping in f32 and adding 1.5 * 2^23 gives round-half-even then
+    clip, also on ties, below 0, above the top bin and at NaN."""
+    v = np.array([-3.5, -0.5, -0.0, 0.0, 0.5, 1.5, 2.5, 3.4999998, 199.5,
+                  200.0, 200.5, 1e9, -1e9, np.inf, -np.inf, np.nan,
+                  4194303.5], np.float32)
+    for top in (200, 4194303):
+        clamped = np.fmin(np.fmax(v, np.float32(0)), np.float32(top))
+        magic = np.float32(12582912.0)
+        got = (clamped + magic).view(np.int32) - magic.view(np.int32)
+        want = np.clip(np.rint(np.nan_to_num(v.astype(np.float64), nan=0.0)),
+                       0, top).astype(np.int64)
+        np.testing.assert_array_equal(got, want)
