@@ -4,12 +4,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-With --text-kernel-times it only times the labelers and the compactor at
-the text scene's shapes, the FAST kernel at level 0 of the 720p scene
-(two-output entry) and the SHT accumulator at the scene's edge list, and
-prints one JSON line; --package-root DIR takes compv_tpu_torch from another
-checkout, so that two versions of a kernel can be timed in turns on one
-card:
+With --text-kernel-times it only times the labelers, the compactor and the
+strip label counter at the text scene's shapes, the FAST kernel at level 0
+of the 720p scene (two-output entry) and the SHT accumulator at the scene's
+edge list, and prints one JSON line; --package-root DIR takes
+compv_tpu_torch from another checkout, so that two versions of a kernel can
+be timed in turns on one card:
 
     python3 chip_smoke.py --text-kernel-times [--package-root DIR]
 
@@ -36,10 +36,14 @@ Phases, each printing its lines before the last:
      binary at both connectivities, every changed level of its MSER ladder
      at both connectivities, its run tables with and without overflow and
      with a row count that is no multiple of 8), a 1285x1285 random binary,
-     a snake and edge shapes; the text partition against
-     scipy.ndimage.label; the seeded labeler K2b against K2a on every level
-     (from the ladder's seed and from an own-index seed), run twice, and on
-     a seed with out-of-range and background entries; exactly one device
+     a snake and edge shapes, and what stresses K2a's tiling: heights and
+     widths one below, at and above a multiple of the tile, a component
+     that winds through every tile, a full map, checkerboards of single
+     pixels, a 2160x3840 random map; every K2a result also against
+     scipy.ndimage.label's partition and a second run; the seeded labeler
+     K2b against K2a on every level (from the ladder's seed and from an
+     own-index seed), run twice, and on a seed with out-of-range and
+     background entries; exactly one device
      operation per compact_rows call, counted as the nodes of a captured
      CUDA graph and, where torch.profiler recorded the window, by it too;
   7. the text-blob slice: features.ccl.ccl_features on the text binary and
@@ -50,26 +54,34 @@ Phases, each printing its lines before the last:
      ccl_boxes_text and mser_text rows, each also under torch.profiler for
      its device-busy time, device operations and idle share) and of K2a,
      K2b and K3 against their twins, as medians of CUDA-event timings;
-     K2b per ladder level and per pass; launches per call of each path; the
-     launch floor (one trivial launch through ctypes, back to back);
+     K2a and K2b per pass, K2b per ladder level; launches per call of each
+     path; the launch floor (one trivial launch through ctypes, back to
+     back);
   9. Hough kernels vs twins: the SHT accumulator K4 against its twin,
      exact, on the 720p scene's Canny edge list at 1 and 0.5 degree, a
-     dense random map, an empty list, a 2160x3840 map, lists of 1 and of
+     dense random map, an empty list, a 2160x3840 map (also at rho steps
+     of 0.15 and 0.1, 58,746 and 88,118 bins a theta: wider than a block's
+     shared memory, where the kernel tiles rho), lists of 1 and of
      ragged lengths, a list whose edges are scattered with weights above 1,
      arrays off 16 bytes, and 1 and 181 thetas; the strip label
      counter K5 against its twin, exact, on the text binary's labels and
-     every changed level of the MSER ladder, and on a truncating case; K5's
-     merged counts against torch.bincount and CclResult.area;
+     every changed level of the MSER ladder, on a truncating case, on
+     strips of 8 x 8192 and 16 x 4096 labels and on a map of per-pixel
+     distinct labels; K5's merged counts against torch.bincount and
+     CclResult.area;
  10. the Hough slice: features.canny + features.hough.hough_sht and
      hough_kht on the 720p scene, calib.checkerboard.find_chessboard_corners
      on a rendered 6x8 board 720 rows tall at 12 degrees, with K4's launch
      count, determinism, the twin path, the CPU result and the board's
-     truth; K5's own path (the per-strip histograms of every ladder level);
+     truth; hough_sht on a 2160x3840 map at a rho step of 0.1 against the
+     CPU run; K5's own path (the per-strip histograms of every ladder
+     level);
  11. times of the Hough slice (bench.py's canny3x3, hough_sht and
      hough_kht rows, find_chessboard_corners) and of K4 and K5 against
      their twins, as medians of CUDA-event timings; K4 also at the
-     checkerboard's 16,384-slot list, and one sht_accumulate call as the
-     nodes of a captured CUDA graph (one kernel).
+     checkerboard's 16,384-slot list and at the 2160x3840 map's 88,118-bin
+     accumulator, and one sht_accumulate call as the nodes of a captured
+     CUDA graph (one kernel); K5 also on wide strips and per-pixel labels.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -766,6 +778,26 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
         "1xN": (rs.random((1, 1122)) < 0.5).astype(np.uint8),
         "Nx1": (rs.random((1182, 1)) < 0.5).astype(np.uint8),
     }
+    # what stresses a tiling of 32 rows by 32 or 64 columns
+    for hh in (31, 32, 33, 63, 64, 65):
+        for ww in (31, 32, 33, 63, 64, 65):
+            binaries[f"{hh}x{ww}"] = (rs.random((hh, ww)) < 0.55
+                                      ).astype(np.uint8)
+    serpent = np.zeros((200, 301), np.uint8)
+    for k, r in enumerate(range(0, 200, 2)):
+        serpent[r, :] = 1
+        if r + 2 < 200:
+            serpent[r:r + 2, 300 if k % 2 == 0 else 0] = 1
+    yy, xx = np.mgrid[0:131, 0:197]
+    binaries.update({
+        "serpent": serpent, "all_fg_1182x1122": np.ones((1182, 1122),
+                                                        np.uint8),
+        "checker": ((yy + xx) % 2).astype(np.uint8),
+        "checker_odd": ((yy + xx + 1) % 2).astype(np.uint8),
+        # below the 8-connected percolation threshold, so that the twin's
+        # pointer stage converges
+        "random_2160x3840": (rs.random((2160, 3840)) < 0.35).astype(np.uint8),
+    })
     cases = 0
     for name, b in binaries.items():
         t = torch.from_numpy(b).to(dev)
@@ -778,10 +810,12 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
             got = ck.ccl_label(t, conn)
             check(torch.equal(got, want), f"K2a != twin on {name}, "
                   f"connectivity {conn}")
+            check(np.array_equal(got.cpu().numpy(), oracle_labels(b, conn)),
+                  f"K2a's partition != scipy.ndimage.label's on {name}, "
+                  f"connectivity {conn}")
+            check(torch.equal(ck.ccl_label(t, conn), got),
+                  f"K2a differs from run to run on {name}")
             cases += 1
-    got = ck.ccl_label(torch.from_numpy(text_bin).to(dev), 8)
-    part = np.array_equal(got.cpu().numpy(), oracle_labels(text_bin, 8))
-    check(part, "K2a's text partition != scipy.ndimage.label's")
 
     # K2b on every changed level of the text ladder: the twin's labels,
     # K2a's labels, the same from an own-index seed, the same again
@@ -863,7 +897,8 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
           f"compact_rows made {len(k3_ops)} device operations: {k3_ops}")
     torch.cuda.synchronize()
     emit({"phase": 6, "k2a_vs_twin": "exact", "k2a_cases": cases,
-          "text_partition_vs_scipy": "equal", "k2b_vs_twin": "exact",
+          "k2a_vs_scipy": "equal on every case", "k2a_repeat": "identical",
+          "k2b_vs_twin": "exact",
           "k2b_ladder_levels": {c: len(t) for c, t in ladders.items()},
           "k2b_vs_k2a": "equal from the ladder's seed and an own-index "
                         "seed, twice", "k2b_invalid_seed": "exact",
@@ -1037,6 +1072,9 @@ def phase8_text_times(card: str, text_bin, img, labels, pairs, launches):
     passes = {}
     for name, us in device_events(seeded_all(ck.ccl_label_seeded))[0]:
         passes[name] = passes.get(name, 0.0) + us / len(pairs)
+    k2a_passes = {}
+    for name, us in device_events(lambda: ck.ccl_label(text_bin), 10)[0]:
+        k2a_passes[name] = k2a_passes.get(name, 0.0) + us / 10
     k3_host_us = host_us(lambda: cpk.compact_rows(a, b, counts, 8192))
     empty_host_us = host_us(lambda: torch.empty(
         (65536,), dtype=torch.int32, device=fg.device))
@@ -1061,6 +1099,7 @@ def phase8_text_times(card: str, text_bin, img, labels, pairs, launches):
                      f"{len(pairs)} changed levels",
           "k2b_per_level_us": per_level,
           "k2b_device_us_per_pass": passes,
+          "k2a_device_us_per_pass": k2a_passes,
           "k3_host_us": k3_host_us, "torch_empty_host_us": empty_host_us,
           "launch_floor_us": launch_floor_ms() * 1e3,
           "launches_per_call": {"label_components": {"K2a": launches["K2a"]},
@@ -1165,6 +1204,20 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
                              "rho": rho_step, "n_rho": got.shape[1],
                              "edges": int(args[2].sum())})
     check(k4_cases[-3]["n_rho"] == 8813, "4K map's n_rho != 8813")
+    # rows wider than a block's shared memory: the kernel tiles rho
+    for rho_step, n_rho in ((0.15, 58746), (0.1, 88118)):
+        args = sht_args(maps["random_2160x3840"], 1.0, rho_step)
+        got, want = hk.sht_accumulate(*args), hk.sht_accumulate_ref(*args)
+        check(got.shape == (180, n_rho), f"n_rho {got.shape[1]} != {n_rho}")
+        err["K4"] = max(err["K4"], float((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"K4 != twin on the 2160x3840 map at rho {rho_step}")
+        check(int(got.sum()) == args[3] * int(args[2].sum()),
+              f"K4 lost votes at rho {rho_step}")
+        k4_cases.append({"map": "random_2160x3840", "theta_step_deg": 1.0,
+                         "rho": rho_step, "n_rho": n_rho,
+                         "edges": int(args[2].sum())})
+        del got, want
     empty = torch.zeros(0, dtype=torch.float32, device=dev)
     args = (empty, empty, torch.zeros(0, dtype=torch.int32, device=dev),
             *sht_args(maps["dense_480x640"], 1.0, 1.0)[3:])
@@ -1206,18 +1259,38 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
                          "votes_per_theta": int(args[2].sum())})
     plans = {name: hk.sht_plan(n_theta, n_rho, dev) for name, n_theta, n_rho
              in (("720p_1deg", 180, 2942), ("720p_half_deg", 360, 2942),
-                 ("2160x3840_1deg", 180, 8813), ("theta_1", 1, 2942))}
+                 ("2160x3840_1deg", 180, 8813), ("theta_1", 1, 2942),
+                 ("2160x3840_rho_0.15", 180, 58746),
+                 ("2160x3840_rho_0.1", 180, 88118),
+                 ("theta_1_rho_0.1", 1, 88118))}
+    check(plans["720p_1deg"] == (6, 4, 1)
+          and plans["2160x3840_1deg"] == (6, 4, 1),
+          f"K4's plans at the path's shapes moved: {plans}")
+    check(plans["2160x3840_rho_0.1"][2] > 1, "no rho tiles at n_rho 88,118")
 
     # K5 on the text binary's labels and every changed ladder level
     k5_maps = [("text_binary", text_labels, 256)]
     k5_maps += [(f"ladder_{i}", ck.ccl_label_seeded(fg, init, 8), 640)
                 for i, (fg, init) in enumerate(pairs)]
     k5_maps.append(("text_binary_truncating", text_labels, 8))
+    # strips of 65,536 labels, twice what a block's shared memory holds,
+    # and the worst case of the run compression: every pixel its own label
+    wide = ck.ccl_label(torch.from_numpy(
+        (rs.random((32, 8192)) < 0.45).astype(np.uint8)).to(dev), 8)
+    k5_maps += [("wide_8x8192", wide, 256),
+                ("wide_16x4096", wide[:, :4096].contiguous(), 256),
+                ("per_pixel_labels", torch.arange(
+                    64 * 1122, dtype=torch.int32, device=dev
+                ).reshape(64, 1122).flip(1).contiguous(), 256),
+                ("per_pixel_labels_rounds_11000", torch.arange(
+                    16 * 1122, dtype=torch.int32, device=dev
+                ).reshape(16, 1122), 11000)]
     truncating = 0
     merged_checked = 0
     for name, lbl, rounds in k5_maps:
-        got = ls.strip_label_counts(lbl, rounds)
-        want = ls.strip_label_counts_ref(lbl, rounds)
+        rows = 16 if name == "wide_16x4096" else 8
+        got = ls.strip_label_counts(lbl, rounds, rows)
+        want = ls.strip_label_counts_ref(lbl, rounds, rows)
         for g, w_, field in zip(got, want, ("records", "used", "truncated")):
             err["K5"] = max(err["K5"], float((g - w_).abs().max()))
             check(torch.equal(g, w_), f"K5 != twin in {field} on {name}")
@@ -1242,7 +1315,7 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
     torch.cuda.synchronize()
     emit({"phase": 9, "k4_vs_twin": "exact", "k4_cases": k4_cases,
           "k4_empty": "exact",
-          "k4_thetas_per_cta_and_ctas_per_cluster": plans,
+          "k4_thetas_per_cta_ctas_per_cluster_and_rho_tiles": plans,
           "k5_vs_twin": "exact",
           "k5_maps": len(k5_maps), "k5_truncating_maps": truncating,
           "k5_merged_vs_bincount": merged_checked,
@@ -1342,6 +1415,23 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
                         HoughKhtConfig())
     kht_same = all(torch.equal(a.cpu(), b) for a, b in zip(kht, kht_cpu))
 
+    # a theta row of 88,118 bins (the rho-tiled kernel): card against CPU
+    rs = np.random.default_rng(10)
+    big = torch.from_numpy(((rs.random((2160, 3840)) < 0.004) * 255
+                            ).astype(np.uint8))
+    big[1000, 200:3600] = 255
+    big[300:1900, 2222] = 255
+    fine = HoughShtConfig(rho=0.1, threshold=0.5, max_lines=16)
+    before = hk.sht_accumulate.launches
+    wide_lines = hough_sht(big.to(dev), fine)
+    check(hk.sht_accumulate.launches == before + 1,
+          "hough_sht at rho 0.1 did not launch K4")
+    wide_cpu = hough_sht(big, fine)
+    check(int(wide_lines.count()) > 0, "hough_sht at rho 0.1 found no line")
+    for name, a, b in zip(wide_lines._fields, wide_lines, wide_cpu):
+        check(torch.equal(a.cpu(), b),
+              f"hough_sht at rho 0.1, card != CPU in {name}")
+
     # K5's path: the per-strip component histograms of the MSER probe's
     # ladder (every 5th gray level of the text scene, rounds 640)
     text_t = torch.from_numpy(text).to(dev)
@@ -1365,6 +1455,8 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
           "k5_launches": k5_launches, "k5_strip_records_used": used,
           "twin_path": "identical Lines and corners",
           "cpu": "identical canny map and hough_sht Lines",
+          "hough_sht_2160x3840_rho_0.1": {
+              "lines": int(wide_lines.count()), "cpu": "identical Lines"},
           "kht_card_equals_cpu": kht_same})
     return gray, edges, board, k4_launches, k5_launches
 
@@ -1377,6 +1469,7 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
     from compv_tpu_torch.features.hough import (HoughKhtConfig,
                                                 HoughShtConfig, hough_kht,
                                                 hough_sht)
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
 
@@ -1400,6 +1493,30 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
     board_args = sht_args(canny(board, CheckerboardConfig().canny), 1.0, 1.0,
                           16384)
     board_us = device_ms(lambda: hk.sht_accumulate(*board_args)) * 1e3
+    # the rho-tiled form: a 2160x3840 map at rho 0.1, 88,118 bins a theta
+    rs = np.random.default_rng(9)
+    wide_args = sht_args(torch.from_numpy(
+        ((rs.random((2160, 3840)) < 0.008) * 255).astype(np.uint8)
+    ).to(gray.device), 1.0, 0.1)
+    wide_us = device_ms(lambda: hk.sht_accumulate(*wide_args)) * 1e3
+    wide_acc = hk.sht_accumulate(*wide_args)
+    wide_bound = bound(3 * 4 * wide_args[0].numel() + 2 * 4 * wide_args[3]
+                       + 4 * wide_acc.numel(),
+                       7 * int(wide_args[2].sum()) * wide_args[3],
+                       FP32_OPS_PER_S)
+    wide_plan = hk.sht_plan(wide_args[3], wide_acc.shape[1], gray.device)
+    del wide_acc
+    # K5 where the first kernel raised, and at the run compression's worst
+    dev = text_labels.device
+    wide_labels = ck.ccl_label(torch.from_numpy(
+        (rs.random((32, 8192)) < 0.45).astype(np.uint8)).to(dev), 8)
+    per_pixel = torch.arange(64 * 1122, dtype=torch.int32,
+                             device=dev).reshape(64, 1122)
+    k5_other_us = {
+        "4_strips_of_8x8192": device_ms(
+            lambda: ls.strip_label_counts(wide_labels, 256)) * 1e3,
+        "8_strips_of_8x1122_per_pixel_labels": device_ms(
+            lambda: ls.strip_label_counts(per_pixel, 256)) * 1e3}
     k4_nodes = captured_nodes(lambda: hk.sht_accumulate(*args))
     check(k4_nodes == [0], "sht_accumulate made other device operations "
           f"than one kernel: node types {k4_nodes}")
@@ -1439,6 +1556,12 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
           "k4_board_slots": int(board_args[0].numel()),
           "k4_board_valid_edges": int(board_args[2].sum()),
           "k4_captured_graph_nodes": len(k4_nodes),
+          "k4_plan": hk.sht_plan(n_theta, acc.shape[1], gray.device),
+          "k4_wide": {"n_rho": hk.n_rho_bins(wide_args[4], wide_args[5]),
+              "edges": int(wide_args[2].sum()), "plan": wide_plan,
+              "device_us": wide_us,
+              "bound_us": wide_bound["bound_ms"] * 1e3},
+          "k5_other_device_us": k5_other_us,
           "k5_at": "text binary's 8-conn labels, rounds 256",
           "timing": "median of CUDA-event timings after warm-up"})
     return times, bounds
@@ -1446,10 +1569,10 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
 
 def text_kernel_times(package_root: str) -> int:
     """From the package under ``package_root``: K2a, K2b (mean and per
-    level over the text ladder) and K3's wrapper at the text scene's
+    level over the text ladder), K3's wrapper and K5 at the text scene's
     shapes, K1's two-output entry at level 0 of the 720p scene and K4 at
-    the scene's Canny edge list, by CUDA events, and K1's, K2b's, K3's and
-    K4's device time by the profiler."""
+    the scene's Canny edge list, by CUDA events, and each one's device time
+    by the profiler."""
     sys.path.insert(0, package_root)
     from compv_tpu_torch.device import require_cuda
     from compv_tpu_torch.features.canny import CannyConfig, canny
@@ -1458,13 +1581,21 @@ def text_kernel_times(package_root: str) -> int:
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
 
     dev = require_cuda()
     scene, text = scenes()
     text_bin = torch.from_numpy((text < 128).astype(np.uint8) * 255).to(dev)
+    labels = ck.ccl_label(text_bin)
+    check(np.array_equal(labels.cpu().numpy(),
+                         oracle_labels(text_bin.cpu().numpy(), 8)),
+          "K2a != scipy's partition on the text binary")
+    for got, want in zip(ls.strip_label_counts(labels, 256),
+                         ls.strip_label_counts_ref(labels, 256)):
+        check(torch.equal(got, want), "K5 != twin on the text labels")
     pairs = [(fg, init) for fg, init, _ in ladder(
         torch.from_numpy(text).to(dev), MserConfig())]
-    a, b, counts = run_tables(ck.ccl_label(text_bin), 128)
+    a, b, counts = run_tables(labels, 128)
     for fg, init in pairs:
         check(torch.equal(ck.ccl_label_seeded(fg, init), ck.ccl_label(fg)),
               "K2b != K2a on a level of the text ladder")
@@ -1481,12 +1612,33 @@ def text_kernel_times(package_root: str) -> int:
         for fg, init in pairs:
             ck.ccl_label_seeded(fg, init)
 
+    # K2a off its path: a small and a large noise map at density one half
+    # (near percolation, most unions a pixel), a full map, single pixels
+    rs = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:1182, 0:1122]
+    others = {"noise_64x80": rs.random((64, 80)) < 0.5,
+              "noise_1285x1285": rs.random((1285, 1285)) < 0.5,
+              "noise_2160x3840": rs.random((2160, 3840)) < 0.5,
+              "full_1182x1122": np.ones((1182, 1122), bool),
+              "checkerboard_1182x1122": (yy + xx) % 2 == 0}
+    k2a_other = {}
+    for name, mask in others.items():
+        t = torch.from_numpy(mask.astype(np.uint8)).to(dev)
+        check(np.array_equal(ck.ccl_label(t).cpu().numpy(),
+                             oracle_labels(mask, 8)),
+              f"K2a != scipy's partition on {name}")
+        k2a_other[name] = device_ms(lambda: ck.ccl_label(t)) * 1e3
+
     emit({"package_root": os.path.abspath(package_root),
           "card": card_line(),
           "K1_device_us": device_ms(
               lambda: fk.fast_strengths_and_nms(gray, 20, 9)) * 1e3,
           "K4_device_us": device_ms(lambda: hk.sht_accumulate(*sht)) * 1e3,
+          "K2a_device_us": device_ms(lambda: ck.ccl_label(text_bin)) * 1e3,
+          "K2a_other_device_us": k2a_other,
           "K2b_device_us": device_ms(seeded_all, 1) / len(pairs) * 1e3,
+          "K5_device_us": device_ms(
+              lambda: ls.strip_label_counts(labels, 256)) * 1e3,
           "K3_device_us": device_ms(
               lambda: cpk.compact_rows(a, b, counts, 8192)) * 1e3,
           "K1_us": cuda_ms(lambda: fk.fast_strengths_and_nms(gray, 20, 9),
@@ -1501,6 +1653,8 @@ def text_kernel_times(package_root: str) -> int:
               lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5, inner=10)
               * 1e3 for f, i in pairs],
           "K3_us": cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192),
+                           reps=20, inner=10) * 1e3,
+          "K5_us": cuda_ms(lambda: ls.strip_label_counts(labels, 256),
                            reps=20, inner=10) * 1e3,
           "timing": "median of CUDA-event timings after warm-up; device "
                     "times by the profiler"})

@@ -60,6 +60,18 @@
 //     the card otherwise), and T is the least for which the theta blocks
 //     times S fit the SMs, within the shared memory a block may opt into
 //     (180 thetas on 132 SMs: T = 6, 30 blocks, 120 CTAs).
+//   * Wide accumulators: where one theta row of n_rho bins is more than a
+//     block's shared memory (some 58,000 bins: a 2160x3840 image at a rho
+//     step of 0.1 has 88,118), a CTA owns a rho range of its thetas, a tile
+//     of 2^k bins, and the grid gains a rho-tile dimension. Every CTA still
+//     walks its share of the list; a vote lands at its bin modulo the tile
+//     width and adds its weight where the bin's tile is the CTA's own, 0
+//     elsewhere, so the loop stays free of branches and the misses spread
+//     over the banks. Reduction and write go tile by tile, every element of
+//     acc still written exactly once by one device operation. The thetas
+//     times the tiles then fill the card without an edge split (S = 1
+//     where they outnumber the SMs), in several waves. The narrow case
+//     compiles to the code it was (kTiled = false).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,12 +91,15 @@ constexpr int kMaxS = 8;
 // The votes of the first L of a warp's register-held groups for thetas
 // t0 .. t0 + nt: all 4 L bins of a theta first, then the 4 L atomics, no
 // branch between them. A zero weight adds nothing wherever its bin lies.
-template <int L>
+// kTiled: hist rows are `pitch` = 2^shift bins wide and hold the bins of
+// rho tile `tile`; a vote for another tile adds 0 at its bin modulo pitch.
+template <int L, bool kTiled>
 __device__ __forceinline__ void vote(
     int32_t* hist, const float (&xs)[kPass][kVec],
     const float (&ys)[kPass][kVec], const int32_t (&ws)[kPass][kVec],
     const float* __restrict__ cos_t, const float* __restrict__ sin_t, int nt,
-    int n_rho, float rho_max, float inv_step) {
+    int n_rho, float rho_max, float inv_step, int pitch, int shift,
+    int tile) {
   // rint(clamp(v)) == clamp(rint(v)) for integer bounds, and adding
   // 1.5 * 2^23 to a float in [0, 2^22) rounds it to the nearest integer,
   // ties to even, into the low mantissa bits: rintf and the conversion
@@ -96,7 +111,7 @@ __device__ __forceinline__ void vote(
   for (int t = 0; t < nt; ++t) {
     const float c = __ldg(cos_t + t);
     const float s = __ldg(sin_t + t);
-    const int row = t * n_rho - __float_as_int(kMagic);
+    const int row = t * pitch - (kTiled ? 0 : __float_as_int(kMagic));
     int bin[L][kVec];
 #pragma unroll
     for (int k = 0; k < L; ++k) {
@@ -111,20 +126,31 @@ __device__ __forceinline__ void vote(
 #pragma unroll
     for (int k = 0; k < L; ++k) {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j)
-        atomicAdd(&hist[row + bin[k][j]], ws[k][j]);
+      for (int j = 0; j < kVec; ++j) {
+        if (kTiled) {
+          const int b = bin[k][j] - __float_as_int(kMagic);
+          atomicAdd(&hist[row + (b & (pitch - 1))],
+                    (b >> shift) == tile ? ws[k][j] : 0);
+        } else {
+          atomicAdd(&hist[row + bin[k][j]], ws[k][j]);
+        }
+      }
     }
   }
 }
 
+// shift: kTiled, the log2 of the rho tile's width (blockIdx.z is the tile).
+template <bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
     sht_accumulate(const float* __restrict__ x, const float* __restrict__ y,
                    const int32_t* __restrict__ w,
                    const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, int32_t* __restrict__ acc,
                    int n_edges, int n_theta, int n_rho, float rho_max,
-                   float inv_step, int n_t, int vec_ok) {
-  extern __shared__ __align__(16) int32_t hist[];   // (n_t, n_rho)
+                   float inv_step, int n_t, int vec_ok, int shift) {
+  extern __shared__ __align__(16) int32_t hist[];   // (n_t, pitch)
+  const int pitch = kTiled ? 1 << shift : n_rho;
+  const int tile = kTiled ? static_cast<int>(blockIdx.z) : 0;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_s = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -133,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = tid >> 5;
   const int t0 = blockIdx.x * n_t;
   const int nt = min(n_t, n_theta - t0);
-  const int bins = nt * n_rho;
+  const int bins = nt * pitch;
   {
     int4* h4 = reinterpret_cast<int4*>(hist);
     for (int b = tid; b < bins / 4; b += kThreads)
@@ -205,17 +231,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int k = 0; k < kPass; ++k) n_live += live[k];
     static_assert(kPass == 4, "the dispatch below lists the live counts");
     if (n_live == 4)
-      vote<4>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
-              inv_step);
+      vote<4, kTiled>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho,
+                       rho_max, inv_step, pitch, shift, tile);
     else if (n_live == 3)
-      vote<3>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
-              inv_step);
+      vote<3, kTiled>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho,
+                       rho_max, inv_step, pitch, shift, tile);
     else if (n_live == 2)
-      vote<2>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
-              inv_step);
+      vote<2, kTiled>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho,
+                       rho_max, inv_step, pitch, shift, tile);
     else if (n_live == 1)
-      vote<1>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho, rho_max,
-              inv_step);
+      vote<1, kTiled>(hist, xs, ys, ws, cos_t + t0, sin_t + t0, nt, n_rho,
+                       rho_max, inv_step, pitch, shift, tile);
   }
 
   // the S partial histograms become this theta block's rows of acc: each
@@ -230,8 +256,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < kMaxS; ++i)
     peers[i] = cluster.map_shared_rank(hist, (rank + i) % n_s);
-  for (int b = b0 + 4 * tid; b < b1; b += 4 * kThreads) {
-    if (b + 4 <= b1) {
+  if constexpr (kTiled) {
+    // hist row t holds bins [r0, r0 + pitch) of theta t0 + t; pitch and
+    // the slices are multiples of 4, so a group of 4 stays in one row
+    const int r0 = tile << shift;
+    for (int b = b0 + 4 * tid; b < b1; b += 4 * kThreads) {
+      const int col = r0 + (b & (pitch - 1));
+      if (col >= n_rho) continue;
       int4 sum = make_int4(0, 0, 0, 0);
 #pragma unroll
       for (int i = 0; i < kMaxS; ++i) {
@@ -240,19 +271,39 @@ __global__ void __launch_bounds__(kThreads, 1)
           sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
         }
       }
-      if (out_vec) {
-        *reinterpret_cast<int4*>(out + b) = sum;
+      int32_t* o = out + static_cast<size_t>(b >> shift) * n_rho + col;
+      if (col + 4 <= n_rho && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+        *reinterpret_cast<int4*>(o) = sum;
       } else {
-        out[b] = sum.x, out[b + 1] = sum.y;
-        out[b + 2] = sum.z, out[b + 3] = sum.w;
+        const int32_t part[4] = {sum.x, sum.y, sum.z, sum.w};
+        for (int e = 0; e < 4 && col + e < n_rho; ++e) o[e] = part[e];
       }
-    } else {
-      for (int e = b; e < b1; ++e) {   // the slice's last bins
-        int32_t sum = 0;
+    }
+  } else {
+    for (int b = b0 + 4 * tid; b < b1; b += 4 * kThreads) {
+      if (b + 4 <= b1) {
+        int4 sum = make_int4(0, 0, 0, 0);
 #pragma unroll
-        for (int i = 0; i < kMaxS; ++i)
-          if (i < n_s) sum += peers[i][e];
-        out[e] = sum;
+        for (int i = 0; i < kMaxS; ++i) {
+          if (i < n_s) {
+            const int4 v = *reinterpret_cast<const int4*>(peers[i] + b);
+            sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+          }
+        }
+        if (out_vec) {
+          *reinterpret_cast<int4*>(out + b) = sum;
+        } else {
+          out[b] = sum.x, out[b + 1] = sum.y;
+          out[b + 2] = sum.z, out[b + 3] = sum.w;
+        }
+      } else {
+        for (int e = b; e < b1; ++e) {   // the slice's last bins
+          int32_t sum = 0;
+#pragma unroll
+          for (int i = 0; i < kMaxS; ++i)
+            if (i < n_s) sum += peers[i][e];
+          out[e] = sum;
+        }
       }
     }
   }
@@ -267,12 +318,14 @@ int attribute(cudaDeviceAttr what) {
   return v;
 }
 
-cudaLaunchConfig_t config(int n_theta, int n_rho, int n_t, int n_s,
-                          cudaLaunchAttribute* attr, cudaStream_t stream) {
+// pitch: the bins of a histogram row (n_rho, or the rho tile's width).
+cudaLaunchConfig_t config(int n_theta, int pitch, int n_t, int n_s,
+                          int n_tiles, cudaLaunchAttribute* attr,
+                          cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_theta + n_t - 1) / n_t, n_s, 1);
+  cfg.gridDim = dim3((n_theta + n_t - 1) / n_t, n_s, n_tiles);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(n_t) * n_rho * sizeof(int32_t);
+  cfg.dynamicSmemBytes = static_cast<size_t>(n_t) * pitch * sizeof(int32_t);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 1;
@@ -283,51 +336,80 @@ cudaLaunchConfig_t config(int n_theta, int n_rho, int n_t, int n_s,
   return cfg;
 }
 
-// T thetas a CTA and S CTAs a cluster for an (n_theta, n_rho) accumulator
-// on the current device; the kernel's shared-memory attribute is left set
-// for them. Kept for the last shape asked.
-cudaError_t plan(int n_theta, int n_rho, int* n_t, int* n_s) {
-  static int key[3] = {-1, -1, -1}, val[2] = {0, 0};
+struct Plan {
+  int n_t;      // thetas a CTA
+  int n_s;      // CTAs a cluster (the split of the edge list)
+  int n_tiles;  // rho tiles; 1: a CTA holds whole rows (kTiled = false)
+  int shift;    // log2 of a tile's width where n_tiles > 1
+};
+
+// Tries (t, s) and smaller until the device takes the cluster; the kernel's
+// shared-memory attribute is left set for what it took.
+template <bool kTiled>
+cudaError_t fit(int n_theta, int pitch, int n_tiles, int* t, int* s) {
+  for (;;) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sht_accumulate<kTiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*t * pitch * sizeof(int32_t)));
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg =
+        config(n_theta, pitch, *t, *s, n_tiles, &attr, nullptr);
+    int resident = 0;
+    err = cudaOccupancyMaxActiveClusters(&resident, sht_accumulate<kTiled>,
+                                         &cfg);
+    if (err == cudaSuccess && resident > 0) return cudaSuccess;
+    cudaGetLastError();   // a refused shape is tried smaller, not reported
+    if (*s > 1)
+      *s /= 2;
+    else if (*t > 1)
+      *t /= 2;
+    else
+      return err != cudaSuccess ? err : cudaErrorLaunchOutOfResources;
+  }
+}
+
+// The plan for an (n_theta, n_rho) accumulator on the current device. Kept
+// for the last shape asked.
+cudaError_t plan(int n_theta, int n_rho, Plan* out) {
+  static int key[3] = {-1, -1, -1};
+  static Plan val = {0, 0, 0, 0};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (key[0] == device && key[1] == n_theta && key[2] == n_rho) {
-    *n_t = val[0], *n_s = val[1];
+    *out = val;
     return cudaSuccess;
   }
   const int optin = attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   const int sms = attribute(cudaDevAttrMultiProcessorCount);
   if (optin < 0 || sms < 0) return cudaErrorInvalidDevice;
   const long long row = static_cast<long long>(n_rho) * sizeof(int32_t);
-  if (row > optin) return cudaErrorInvalidValue;
-  // one CTA an SM and one wave: with S CTAs a cluster, T is the least for
-  // which the theta blocks times S fit the SMs. S = 4 unless the thetas
-  // are so few that 8 are needed to spread the list.
-  const int t_max = static_cast<int>(
-      optin / row < kMaxT ? optin / row : kMaxT);
-  int s = n_theta * 4 * 2 <= sms ? kMaxS : 4;
-  const long long need = (static_cast<long long>(n_theta) * s + sms - 1) / sms;
-  int t = static_cast<int>(need > t_max ? t_max : need);
-  for (;;) {
-    err = cudaFuncSetAttribute(sht_accumulate,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(t * row));
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = config(n_theta, n_rho, t, s, &attr, nullptr);
-    int resident = 0;
-    err = cudaOccupancyMaxActiveClusters(&resident, sht_accumulate, &cfg);
-    if (err == cudaSuccess && resident > 0) break;
-    cudaGetLastError();   // a refused shape is tried smaller, not reported
-    if (s > 1)
-      s /= 2;
-    else if (t > 1)
-      t /= 2;
-    else
-      return err != cudaSuccess ? err : cudaErrorLaunchOutOfResources;
+  Plan p = {1, 1, 1, 0};
+  if (row > optin) {
+    // rho tiles of the largest power of two of bins a block can hold, one
+    // theta a CTA: the fewest passes over the list. The edge split is kept
+    // only where thetas times tiles leave SMs empty.
+    while ((8ll << p.shift) <= optin) ++p.shift;
+    p.n_tiles = (n_rho + (1 << p.shift) - 1) >> p.shift;
+    const long long ctas = static_cast<long long>(n_theta) * p.n_tiles;
+    p.n_s = ctas >= sms ? 1 : ctas * 4 * 2 <= sms ? kMaxS : 4;
+    err = fit<true>(n_theta, 1 << p.shift, p.n_tiles, &p.n_t, &p.n_s);
+  } else {
+    // one CTA an SM and one wave: with S CTAs a cluster, T is the least
+    // for which the theta blocks times S fit the SMs. S = 4 unless the
+    // thetas are so few that 8 are needed to spread the list.
+    const int t_max = static_cast<int>(
+        optin / row < kMaxT ? optin / row : kMaxT);
+    p.n_s = n_theta * 4 * 2 <= sms ? kMaxS : 4;
+    const long long need =
+        (static_cast<long long>(n_theta) * p.n_s + sms - 1) / sms;
+    p.n_t = static_cast<int>(need > t_max ? t_max : need);
+    err = fit<false>(n_theta, n_rho, 1, &p.n_t, &p.n_s);
   }
+  if (err != cudaSuccess) return err;
   key[0] = device, key[1] = n_theta, key[2] = n_rho;
-  val[0] = *n_t = t, val[1] = *n_s = s;
+  *out = val = p;
   return cudaSuccess;
 }
 
@@ -336,7 +418,8 @@ cudaError_t plan(int n_theta, int n_rho, int* n_t, int* n_s) {
 extern "C" {
 
 // Largest dynamic shared memory a block of `device` may opt into, in bytes
-// (the wrapper's bound on n_rho); -1 when the query fails.
+// (above n_rho * 4 of it the accumulator is rho-tiled); -1 when the query
+// fails.
 int compv_sht_smem_optin(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -345,12 +428,15 @@ int compv_sht_smem_optin(int device) {
   return v;
 }
 
-// The thetas a CTA (ts[0]) and the CTAs a cluster (ts[1]) that
-// compv_sht_accumulate takes for this shape on the current device.
-// Returns a cudaError_t.
+// The thetas a CTA (ts[0]), the CTAs a cluster (ts[1]) and the rho tiles
+// (ts[2]; 1 where a CTA holds whole theta rows) that compv_sht_accumulate
+// takes for this shape on the current device. Returns a cudaError_t.
 int compv_sht_plan(int n_theta, int n_rho, int* ts) {
   if (n_theta <= 0 || n_rho <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(plan(n_theta, n_rho, &ts[0], &ts[1]));
+  Plan p;
+  const cudaError_t err = plan(n_theta, n_rho, &p);
+  if (err == cudaSuccess) ts[0] = p.n_t, ts[1] = p.n_s, ts[2] = p.n_tiles;
+  return static_cast<int>(err);
 }
 
 // x, y: (n_edges,) f32; w: (n_edges,) i32; cos_t, sin_t: (n_theta,) f32;
@@ -361,17 +447,20 @@ int compv_sht_accumulate(const float* x, const float* y, const int32_t* w,
                          int n_edges, int n_theta, int n_rho, float rho_max,
                          float inv_step, cudaStream_t stream) {
   if (n_theta <= 0) return static_cast<int>(cudaSuccess);
-  int n_t = 0, n_s = 0;
-  cudaError_t err = plan(n_theta, n_rho, &n_t, &n_s);
+  Plan p;
+  cudaError_t err = plan(n_theta, n_rho, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_ok = ((reinterpret_cast<uintptr_t>(x)
                        | reinterpret_cast<uintptr_t>(y)
                        | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = config(n_theta, n_rho, n_t, n_s, &attr, stream);
-  err = cudaLaunchKernelEx(&cfg, sht_accumulate, x, y, w, cos_t, sin_t, acc,
-                           n_edges, n_theta, n_rho, rho_max, inv_step, n_t,
-                           vec_ok);
+  const bool tiled = p.n_tiles > 1;
+  cudaLaunchConfig_t cfg = config(n_theta, tiled ? 1 << p.shift : n_rho,
+                                  p.n_t, p.n_s, p.n_tiles, &attr, stream);
+  err = cudaLaunchKernelEx(
+      &cfg, tiled ? sht_accumulate<true> : sht_accumulate<false>, x, y, w,
+      cos_t, sin_t, acc, n_edges, n_theta, n_rho, rho_max, inv_step, p.n_t,
+      vec_ok, p.shift);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,10 @@ have not converged. Both reach the unique fixed point above, so kernel and
 twin agree exactly; the twin raises where the pointer stage does not
 converge within ``max_iterations`` rounds instead of returning a partial
 labeling. The kernel is a union-find and always converges; it ignores
-``max_iterations``.
+``max_iterations``. K2a makes every union between two pixels of one 32 x 32
+tile in shared memory (a warp a tile, a lane a row of foreground bits) and
+only the unions of the tiles' seam pixels in global memory, then points
+every pixel at its root; K2b starts from its seed over the whole map.
 
 Dispatch has no fallback: a CUDA tensor goes to the kernel (built at first
 use) or the call raises; a CPU tensor goes to the twin. ``launches`` on

@@ -29,7 +29,10 @@ shared memory, each writing its slice of the accumulator, so every element
 is written once and a call is one device operation. What bounds it is
 latency, not bytes (under a microsecond of HBM time at 720p): the design
 removes the chain of dependent L2 loads and the re-reading of the list
-once a theta. ``sht_plan`` gives the T and S the kernel takes for a shape.
+once a theta. Where a theta row of ``n_rho`` bins is more than a block's
+shared memory (some 58,000 bins on an H100), a CTA owns a rho range of its
+thetas and the grid gains a rho-tile dimension, so any ``n_rho`` is taken.
+``sht_plan`` gives the T, S and rho tiles the kernel takes for a shape.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
 use) or the call raises; CPU tensors go to the twin.
@@ -145,17 +148,18 @@ def sht_accumulate_ref(x, y, w, n_theta: int, rho_max: float,
                                      n_rho_bins(rho_max, rho_step))
 
 
-def sht_plan(n_theta: int, n_rho: int, device) -> tuple[int, int]:
-    """(T, S): the thetas a CTA votes for and the CTAs a cluster (the
-    split of the edge list) that the kernel takes for an ``(n_theta,
-    n_rho)`` accumulator on the CUDA ``device``."""
+def sht_plan(n_theta: int, n_rho: int, device) -> tuple[int, int, int]:
+    """(T, S, tiles): the thetas a CTA votes for, the CTAs a cluster (the
+    split of the edge list) and the rho tiles (1 where a CTA holds whole
+    theta rows) that the kernel takes for an ``(n_theta, n_rho)``
+    accumulator on the CUDA ``device``."""
     lib = _kernel_lib()
-    ts = (ctypes.c_int * 2)()
+    ts = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         rc = lib.compv_sht_plan(n_theta, n_rho, ts)
     if rc != 0:
         raise RuntimeError(f"compv_sht_plan failed: cudaError {rc}")
-    return ts[0], ts[1]
+    return ts[0], ts[1], ts[2]
 
 
 def sht_accumulate(x, y, w, n_theta: int, rho_max: float, rho_step: float,
@@ -173,11 +177,6 @@ def sht_accumulate(x, y, w, n_theta: int, rho_max: float, rho_step: float,
     n_rho = n_rho_bins(rho_max, rho_step)
     lib = _kernel_lib()
     dev = x.device
-    optin = lib.compv_sht_smem_optin(dev.index if dev.index is not None
-                                     else torch.cuda.current_device())
-    if n_rho * 4 > optin:
-        raise ValueError(f"n_rho {n_rho} needs {n_rho * 4} B of shared "
-                         f"memory; the card allows {optin} B per block")
     x, y, w = x.contiguous(), y.contiguous(), w.contiguous()
     cos_t, sin_t = cos_t.contiguous(), sin_t.contiguous()
     acc = torch.empty((n_theta, n_rho), dtype=torch.int32, device=dev)

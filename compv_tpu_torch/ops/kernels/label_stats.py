@@ -14,6 +14,17 @@ over the strips gives its area.
 The twin keys every foreground pixel by (strip, label) in int64, takes
 ``torch.unique`` with counts, and ranks each key within its strip.
 
+The kernel is a run-compressed bounded merge, one CTA a strip: it reads the
+strip as a flat array, emits one (label, run length) key where a label
+differs from its predecessor, and keeps a sorted list of the
+``min(rounds, strip_rows * W) + 1`` smallest distinct labels with their
+counts, into which it merges the keys (a bitonic sort in shared memory, a
+prefix sum over equal labels) whenever its buffer fills; a run head first
+tries a small hash table in shared memory, so that equal labels mostly meet
+before the sort. Its shared memory is the buffer, the list and the table,
+so any ``W`` and ``strip_rows`` are taken; a map of per-pixel distinct
+labels is exact and only slower.
+
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
 use) or the call raises; CPU tensors go to the twin.
 ``strip_label_counts.launches`` counts the calls that launched the kernel.
@@ -26,7 +37,7 @@ import torch
 
 from compv_tpu_torch.ops.kernels import _build
 
-__all__ = ["strip_label_counts", "strip_label_counts_ref"]
+__all__ = ["kernel_plan", "strip_label_counts", "strip_label_counts_ref"]
 
 _lib = None
 _STATIC_SMEM = 1024   # bound on the kernel's static shared memory, bytes
@@ -37,9 +48,13 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("label_stats")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_strip_label_counts.argtypes = [p, i, i, i, i, i, i, p, p,
-                                                 p, p]
+        lib.compv_strip_label_counts.argtypes = [p, i, i, i, i, i, i, i, p,
+                                                 p, p, p]
         lib.compv_strip_label_counts.restype = i
+        lib.compv_strip_step.argtypes = []
+        lib.compv_strip_step.restype = i
+        lib.compv_strip_slots.argtypes = []
+        lib.compv_strip_slots.restype = i
         lib.compv_strip_smem_optin.argtypes = [i]
         lib.compv_strip_smem_optin.restype = i
         _lib = lib
@@ -83,10 +98,27 @@ def strip_label_counts_ref(labels: torch.Tensor, rounds: int = 256,
             (distinct > rounds).to(torch.int32))
 
 
+def kernel_plan(rounds: int, strip_rows: int, w: int, step: int,
+                slots: int) -> tuple[int, int, int]:
+    """(cap, buffer keys, dynamic shared memory in bytes) of the kernel:
+    the list holds ``cap + 1`` pairs, ``cap = min(rounds, strip_rows * w)``
+    (a strip has no more labels than pixels); the buffer is the power of two
+    that takes the list and the ``step`` keys that can come between two
+    flushes; the hash table has ``slots`` slots; 8 bytes each."""
+    cap = min(rounds, strip_rows * w)
+    buf_keys = max(64, 1 << (cap + step).bit_length())
+    return cap, buf_keys, 8 * (buf_keys + cap + 1 + slots)
+
+
 def strip_label_counts(labels: torch.Tensor, rounds: int = 256,
                        strip_rows: int = 8):
     """K5: (H, W) i32 labels (-1 = background) -> (records (S, 2, rounds)
-    i32, used (S,) i32, truncated (S,) i32), S = ceil(H / strip_rows)."""
+    i32, used (S,) i32, truncated (S,) i32), S = ceil(H / strip_rows).
+
+    On a CUDA tensor any ``W`` and ``strip_rows`` are taken. The list of
+    the kernel lives in shared memory, so ``min(rounds, strip_rows * W)``
+    may be at most 11,519 where a block may opt into 227 KB (an H100); the
+    call raises ``ValueError`` above that."""
     _check(labels, rounds, strip_rows)
     if labels.device.type == "cpu":
         return strip_label_counts_ref(labels, rounds, strip_rows)
@@ -99,21 +131,22 @@ def strip_label_counts(labels: torch.Tensor, rounds: int = 256,
     truncated = torch.empty((n_strips,), dtype=torch.int32, device=dev)
     if n_strips == 0 or w == 0:
         return records.zero_(), used.zero_(), truncated.zero_()
-    n_pow2 = 1 << max(strip_rows * w - 1, 1).bit_length()
     lib = _kernel_lib()
     optin = lib.compv_strip_smem_optin(dev.index if dev.index is not None
                                        else torch.cuda.current_device())
-    smem = (n_pow2 + rounds + 1) * 4
+    cap, buf_keys, smem = kernel_plan(rounds, strip_rows, w,
+                                      lib.compv_strip_step(),
+                                      lib.compv_strip_slots())
     if smem + _STATIC_SMEM > optin:
-        raise ValueError(f"a strip of {strip_rows} x {w} labels with rounds "
-                         f"{rounds} needs {smem} B of shared memory; the "
-                         f"card allows {optin} B per block")
+        raise ValueError(f"a list of min(rounds, strip_rows * W) = {cap} "
+                         f"labels needs {smem} B of shared memory; the card "
+                         f"allows {optin} B per block")
     labels = labels.contiguous()
     with torch.cuda.device(dev):
         rc = lib.compv_strip_label_counts(
-            labels.data_ptr(), h, w, strip_rows, n_strips, n_pow2, rounds,
-            records.data_ptr(), used.data_ptr(), truncated.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            labels.data_ptr(), h, w, strip_rows, n_strips, rounds, cap,
+            buf_keys, records.data_ptr(), used.data_ptr(),
+            truncated.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compv_strip_label_counts launch failed: "
                            f"cudaError {rc}")

@@ -365,6 +365,196 @@ def test_warm_union_find_model_sanitises_bad_seeds(connectivity):
     np.testing.assert_array_equal(got, good)
 
 
+# A numpy model of the unseeded kernel's decomposition (csrc/ccl_kernel.cu,
+# K2a): tiles labelled completely on tile-local parent arrays (runs named by
+# the tile-local index of their first pixel, the unions of the row rules in
+# any order), the seam pixels' unions on the global map, the read-only
+# flatten. The kernel's tile is 32 x 32; the model takes any.
+
+def _find(parent, x):
+    """Root of x with path splitting, as find_root / find_local."""
+    p = parent[x]
+    while p != x:
+        gp = parent[p]
+        if gp != p:
+            parent[x] = gp
+        x, p = p, gp
+    return x
+
+
+def _unite(parent, a, b):
+    ra, rb = _find(parent, a), _find(parent, b)
+    if ra != rb:
+        parent[max(ra, rb)] = min(ra, rb)
+
+
+def _row_rule_edges(m, west, north, nw, ne, connectivity):
+    """(pixel, offset) pairs of the row rules on the masks given: the
+    unions of a pixel with the row above that the runs do not imply."""
+    if connectivity == 4:
+        return [(m & north & ~(west & nw), (-1, 0))]
+    return [(m & west & ~north & ne, (-1, 1)),
+            (m & ~west & north, (-1, 0)),
+            (m & ~west & ~north & nw, (-1, -1)),
+            (m & ~west & ~north & ne, (-1, 1))]
+
+
+def _tiled_union_find_model(fg, connectivity, th, tw, rng):
+    """Returns (labels, the global map after the tile pass, seam unions)."""
+    h, w = fg.shape
+    on = fg > 0
+    out = np.full(h * w, -1, np.int64)
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            t = np.zeros((th, tw), bool)         # the tile, 0 past the image
+            sub = on[ty0:ty0 + th, tx0:tx0 + tw]
+            t[:sub.shape[0], :sub.shape[1]] = sub
+            par = np.full(th * tw, -1, np.int64)
+            for r in range(th):                  # run starts in the tile row
+                start = None
+                for x in range(tw):
+                    start = (x if start is None else start) if t[r, x] else None
+                    if start is not None:
+                        par[r * tw + x] = r * tw + start
+            pad = np.pad(t, 1)
+            west, north = pad[1:-1, :-2], pad[:-2, 1:-1]
+            nw, ne = pad[:-2, :-2], pad[:-2, 2:]
+            a, b = [], []
+            local = np.arange(th * tw).reshape(th, tw)
+            for take, (dy, dx) in _row_rule_edges(t, west, north, nw, ne,
+                                                  connectivity):
+                a.append(local[take])
+                b.append(local[take] + dy * tw + dx)
+            a, b = np.concatenate(a), np.concatenate(b)
+            for k in rng.permutation(a.size):
+                _unite(par, int(a[k]), int(b[k]))
+            for r in range(sub.shape[0]):
+                for x in range(sub.shape[1]):
+                    if t[r, x]:
+                        root = r * tw + x
+                        while par[root] != root:     # read only
+                            root = par[root]
+                        out[(ty0 + r) * w + tx0 + x] = (
+                            (ty0 + root // tw) * w + tx0 + root % tw)
+    after_tiles = out.copy().reshape(h, w)
+
+    pad = np.pad(on, 1)
+    west, north, east = pad[1:-1, :-2], pad[:-2, 1:-1], pad[1:-1, 2:]
+    nw, ne = pad[:-2, :-2], pad[:-2, 2:]
+    yy, xx = np.mgrid[0:h, 0:w]
+    row0, col0, col1 = yy % th == 0, xx % tw == 0, (xx + 1) % tw == 0
+    flat = np.arange(h * w).reshape(h, w)
+    edges = [(take & row0, off) for take, off in _row_rule_edges(
+        on, west, north, nw, ne, connectivity)]
+    above = ~row0                                # north lies in the tile row
+    edges.append((on & col0 & west & ~(above & north & nw), (0, -1)))
+    if connectivity == 8:
+        edges.append((on & col0 & above & nw & ~west & ~north, (-1, -1)))
+        edges.append((on & col1 & above & ne & ~north & ~east, (-1, 1)))
+    a = np.concatenate([flat[take] for take, _ in edges])
+    b = np.concatenate([flat[take] + dy * w + dx for take, (dy, dx) in edges])
+    for k in rng.permutation(a.size):
+        _unite(out, int(a[k]), int(b[k]))
+    labels = out.copy()
+    for i in np.flatnonzero(on.reshape(-1)).tolist():
+        x = i
+        while out[x] != x:                       # read only
+            x = out[x]
+        labels[i] = x
+    return labels.reshape(h, w), after_tiles, a.size
+
+
+def _serpent(h, w, step):
+    """One component that winds through the whole map: full rows every
+    ``step`` rows, joined at alternating ends."""
+    img = np.zeros((h, w), np.uint8)
+    for k, r in enumerate(range(0, h, step)):
+        img[r, :] = 1
+        if r + step < h:
+            img[r:r + step, w - 1 if k % 2 == 0 else 0] = 1
+    return img
+
+
+def _tile_cases(th, tw):
+    """Masks that stress a tiling of th x tw: H or W of 1, sizes one below,
+    at and above a multiple of the tile each way, a component through every
+    tile, a full map, checkerboards of single pixels, random masks."""
+    rs = np.random.default_rng(th * 1000 + tw)
+    yy, xx = np.mgrid[0:2 * th + 1, 0:2 * tw + 3]
+    cases = {"1xN": rs.random((1, 2 * tw + 5)) < 0.6,
+             "Nx1": rs.random((2 * th + 5, 1)) < 0.6,
+             "serpent": _serpent(3 * th + 2, 2 * tw + 1, 2),
+             "serpent_3": _serpent(2 * th + 1, 3 * tw - 1, 3),
+             "full": np.ones((2 * th + 1, 2 * tw + 1), bool),
+             "empty": np.zeros((th + 1, tw + 1), bool),
+             "checker": (yy + xx) % 2 == 0,
+             "checker_odd": (yy + xx) % 2 == 1,
+             "diagonals": (yy + xx) % 3 == 0,
+             "antidiagonals": (yy - xx) % 3 == 0}
+    for dh in (-1, 0, 1):
+        for dw in (-1, 0, 1):
+            cases[f"edge{dh:+d}{dw:+d}"] = rs.random(
+                (2 * th + dh, 2 * tw + dw)) < 0.55
+    return {k: np.asarray(v).astype(np.uint8) for k, v in cases.items()}
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("th,tw", [(32, 32), (32, 64), (16, 32), (4, 8),
+                                   (3, 5)])
+def test_tiled_union_find_model_equals_twin_scipy_and_reference(
+        connectivity, th, tw):
+    """The unseeded kernel's decomposition, where no kernel can run: tile-
+    local labeling, seam unions and flatten give the twin's labels,
+    scipy's partition and the reference's labels; after the tile pass every
+    tree is one level deep; only seam pixels unite in the global map."""
+    rng = np.random.default_rng(29)
+    for name, img in _tile_cases(th, tw).items():
+        if (th, tw) == (32, 64) and name.startswith("edge") \
+                and name not in ("edge-1-1", "edge+0+0", "edge+1+1"):
+            continue                     # the largest tile: three of the nine
+        got, after, seam_unions = _tiled_union_find_model(
+            img, connectivity, th, tw, rng)
+        h, w = img.shape
+        idx = torch.arange(h * w, dtype=torch.int32).reshape(h, w)
+        want = ccl_kernel.label_ref(torch.from_numpy(img > 0), idx,
+                                    connectivity, 4000).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_array_equal(got, _oracle_labels(img, connectivity),
+                                      err_msg=name)
+        on = img.reshape(-1) > 0
+        flat = after.reshape(-1)
+        np.testing.assert_array_equal(flat[flat[on]], flat[on], err_msg=name)
+        assert (flat[on] <= np.arange(h * w)[on]).all(), name
+        seam_pixels = (-(-h // th) - 1) * w + 2 * (-(-w // tw) - 1) * h
+        assert seam_unions <= max(seam_pixels, 0) * 2, name
+        if h * w <= 2500:                # the reference's XLA solver: small
+            ref = np.asarray(jccl.label_components(jnp.asarray(img),
+                                                   connectivity, 4000))
+            np.testing.assert_array_equal(got, ref, err_msg=name)
+
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 24), st.integers(1, 24), st.integers(0, 2 ** 32 - 1),
+       st.floats(0.15, 0.85), st.sampled_from([4, 8]),
+       st.sampled_from([(3, 5), (4, 8), (8, 4), (32, 32)]))
+def test_tiled_union_find_model_on_random_masks(h, w, seed, density,
+                                                connectivity, tile):
+    """Random masks of any size and density, tiles that cut them anywhere,
+    the unions in a random order: the twin's labels and scipy's partition."""
+    rng = np.random.default_rng(seed)
+    img = (rng.random((h, w)) < density).astype(np.uint8)
+    got, _, _ = _tiled_union_find_model(img, connectivity, *tile, rng)
+    idx = torch.arange(h * w, dtype=torch.int32).reshape(h, w)
+    want = ccl_kernel.label_ref(torch.from_numpy(img > 0), idx, connectivity,
+                                4000).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle_labels(img, connectivity))
+
+
 def test_labeler_wrapper_checks():
     img = torch.zeros((4, 5), dtype=torch.uint8)
     with pytest.raises(ValueError, match="connectivity"):

@@ -196,6 +196,67 @@ def test_ccl_kernel_equals_twin(dev, connectivity):
         assert torch.equal(got.cpu(), want), img.shape
 
 
+def _serpent(h, w, step):
+    """One component that winds through the whole map."""
+    img = np.zeros((h, w), np.uint8)
+    for k, r in enumerate(range(0, h, step)):
+        img[r, :] = 1
+        if r + step < h:
+            img[r:r + step, w - 1 if k % 2 == 0 else 0] = 1
+    return img
+
+
+def _scipy_labels(img, connectivity):
+    """Min-flat-index labels from scipy.ndimage.label's partition."""
+    from scipy import ndimage
+
+    structure = np.ones((3, 3)) if connectivity == 8 else None
+    lab, n = ndimage.label(img > 0, structure=structure)
+    out = np.full(img.shape, -1, np.int32)
+    if n:
+        flat = np.arange(img.size).reshape(img.shape)
+        mins = np.asarray(ndimage.minimum(flat, lab, np.arange(1, n + 1)))
+        out[lab > 0] = mins.astype(np.int32)[lab[lab > 0] - 1]
+    return out
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("case", ["tile_edges", "serpents", "full",
+                                  "checkerboards", "thin", "large"])
+def test_ccl_kernel_on_tile_edge_cases(dev, connectivity, case):
+    """What stresses the labeler's 32 x 32 tiling, against scipy's
+    partition, twice: sizes one below, at and above a multiple of the tile
+    each way, a component through every tile, a full map, checkerboards of
+    single pixels, maps one pixel thin, a 2160 x 3840 random map."""
+    rs = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:131, 0:197]
+    images = {
+        "tile_edges": [(rs.random((hh, ww)) < 0.55).astype(np.uint8)
+                       for hh in (31, 32, 33, 63, 64, 65)
+                       for ww in (31, 32, 33, 63, 64, 65)],
+        "serpents": [_serpent(200, 301, 2), _serpent(97, 130, 3),
+                     _serpent(64, 64, 4).T.copy()],
+        "full": [np.ones((65, 97), np.uint8), np.ones((1182, 1122), np.uint8)],
+        "checkerboards": [((yy + xx) % 2).astype(np.uint8),
+                          ((yy + xx + 1) % 2).astype(np.uint8),
+                          ((yy + xx) % 3 == 0).astype(np.uint8),
+                          ((yy - xx) % 3 == 0).astype(np.uint8)],
+        "thin": [np.ones((1, 1), np.uint8), np.ones((1, 130), np.uint8),
+                 np.ones((130, 1), np.uint8),
+                 (rs.random((1, 1122)) < 0.5).astype(np.uint8),
+                 (rs.random((1182, 1)) < 0.5).astype(np.uint8)],
+        "large": [(rs.random((2160, 3840)) < 0.5).astype(np.uint8)],
+    }[case]
+    for img in images:
+        t = torch.from_numpy(img).to(dev)
+        got = ccl_kernel.ccl_label(t, connectivity)
+        again = ccl_kernel.ccl_label(t, connectivity)
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(),
+                              _scipy_labels(img, connectivity)), img.shape
+        assert torch.equal(got, again), img.shape
+
+
 @pytest.mark.parametrize("connectivity", [4, 8])
 def test_ccl_seeded_kernel_equals_twin(dev, connectivity):
     """A nested ladder of level sets, each level seeded by the previous
@@ -457,14 +518,34 @@ def test_sht_kernel_ragged_cases(dev, case):
 
 @pytest.mark.parametrize("n_theta,n_rho", [(180, 2942), (360, 2942),
                                            (180, 8813), (1, 2942),
-                                           (181, 4202)])
+                                           (181, 4202), (180, 58112),
+                                           (180, 58746), (180, 88118),
+                                           (1, 88118), (360, 1000003)])
 def test_sht_plan_fits_the_card(dev, n_theta, n_rho):
-    t, s = hough_kernel.sht_plan(n_theta, n_rho, dev)
+    t, s, tiles = hough_kernel.sht_plan(n_theta, n_rho, dev)
     optin = hough_kernel._kernel_lib().compv_sht_smem_optin(0)
     assert t >= 1 and s in (1, 2, 4, 8)
-    assert t * n_rho * 4 <= optin
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert -(-n_theta // t) * s <= sms      # one wave, one CTA an SM
+    if n_rho * 4 <= optin:
+        assert tiles == 1 and t * n_rho * 4 <= optin
+        # one wave, one CTA an SM, unless shared memory holds no more thetas
+        assert (-(-n_theta // t) * s <= sms
+                or t == min(optin // (n_rho * 4), 16))
+    else:                   # rho tiles of a power of two of bins
+        width = -(-n_rho // tiles)
+        tile = 1 << (width - 1).bit_length()
+        assert tiles > 1 and t * tile * 4 <= optin < 2 * tile * 4
+        assert (tiles - 1) * tile < n_rho <= tiles * tile
+        assert s == 1 or n_theta * tiles < sms
+
+
+def test_sht_plan_at_the_paths_shapes(dev):
+    """The plans of the Hough path's shapes on an H100 (132 SMs)."""
+    if torch.cuda.get_device_properties(dev).multi_processor_count != 132:
+        pytest.skip("the plans are those of 132 SMs")
+    assert hough_kernel.sht_plan(180, 2942, dev) == (6, 4, 1)
+    assert hough_kernel.sht_plan(180, 8813, dev) == (6, 4, 1)
+    assert hough_kernel.sht_plan(180, 88118, dev) == (1, 1, 3)
 
 
 def test_sht_accumulate_is_one_device_operation(dev):
@@ -494,10 +575,43 @@ def test_sht_accumulate_is_one_device_operation(dev):
     assert len(ops) == 1, ops
 
 
-def test_sht_kernel_raises_past_shared_memory(dev):
-    x, y, wt = (t.to(dev) for t in _edge_list(0, 16, 8, 8))
-    with pytest.raises(ValueError):
-        _sht(x, y, wt, 1.0, 40000.0, 1.0, hough_kernel.sht_accumulate)
+@pytest.mark.parametrize("n,rho_max,rho_step,step", [
+    (16, 40000.0, 1.0, 1.0),               # 80,001 bins, nearly all empty
+    (65536, float(np.hypot(2160, 3840)), 0.1, 1.0),    # 88,118 bins
+    (65536, float(np.hypot(2160, 3840)), 0.15, 1.0),   # 58,746: two tiles
+    (70001, float(np.hypot(2160, 3840)), 0.1, 0.5),
+    (5000, float(np.hypot(720, 1282)), 0.02, 1.0)])    # 147,036 bins
+def test_sht_kernel_equals_twin_past_shared_memory(dev, n, rho_max, rho_step,
+                                                   step):
+    """A theta row wider than a block's shared memory: the kernel tiles
+    rho and still equals the twin, no vote lost."""
+    x, y, wt = (t.to(dev) for t in _edge_list(n, n, 2160, 3840))
+    if n == 70001:
+        wt = wt * 3
+    want = _sht(x, y, wt, step, rho_max, rho_step,
+                hough_kernel.sht_accumulate_ref)
+    got = _sht(x, y, wt, step, rho_max, rho_step,
+               hough_kernel.sht_accumulate)
+    torch.cuda.synchronize()
+    assert got.shape[1] * 4 > hough_kernel._kernel_lib(
+        ).compv_sht_smem_optin(0)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == theta_count(step) * int(wt.sum())
+
+
+def test_hough_sht_wide_cuda_equals_cpu(dev):
+    """hough_sht at a rho step of 0.1 on a 2160 x 3840 map (88,118 bins a
+    theta): the card's lines are the CPU's."""
+    rs = np.random.default_rng(19)
+    img = ((rs.random((2160, 3840)) < 0.004) * 255).astype(np.uint8)
+    img[1000, 200:3600] = 255
+    img[300:1900, 2222] = 255
+    cfg = HoughShtConfig(rho=0.1, threshold=0.5, max_lines=16)
+    a = hough_sht(torch.from_numpy(img), cfg)
+    b = hough_sht(torch.from_numpy(img).to(dev), cfg)
+    assert int(a.count()) > 0
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y.cpu()), name
 
 
 def _label_maps():
@@ -519,6 +633,51 @@ def test_strip_counts_kernel_equals_twin(dev, rounds, strip_rows):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), tuple(lbl.shape)
+
+
+@pytest.mark.parametrize("case", ["8x8192", "16x4096", "per_pixel",
+                                  "per_pixel_descending", "rounds_11000",
+                                  "random_labels", "one_long_run"])
+def test_strip_counts_kernel_past_the_first_kernels_limits(dev, case):
+    """Strips of 65,536 labels (twice what the first kernel's shared memory
+    held), maps where every pixel is its own run, a list of 11,000 labels,
+    labels up to 2^31 - 1 in no order, one run over a whole strip."""
+    rs = np.random.default_rng(22)
+    rounds, strip_rows = 256, 8
+    if case in ("8x8192", "16x4096"):
+        lbl = label_components(torch.from_numpy(
+            (rs.random((40, 8192)) < 0.45).astype(np.uint8)), 8, 1000)
+        if case == "16x4096":
+            lbl, strip_rows = lbl[:, :4096].contiguous(), 16
+    elif case.startswith("per_pixel"):
+        lbl = torch.arange(64 * 1122, dtype=torch.int32).reshape(64, 1122)
+        if case.endswith("descending"):
+            lbl = lbl.flip(1).contiguous()
+    elif case == "rounds_11000":
+        lbl = torch.arange(16 * 1122, dtype=torch.int32).reshape(16, 1122)
+        rounds = 11000
+    elif case == "random_labels":
+        lbl = torch.from_numpy(rs.integers(
+            -3, 2 ** 31 - 1, (64, 2777), dtype=np.int64).astype(np.int32))
+        rounds, strip_rows = 700, 16
+    else:
+        lbl = torch.full((16, 5000), 7, dtype=torch.int32)
+    want = label_stats.strip_label_counts_ref(lbl, rounds, strip_rows)
+    got = label_stats.strip_label_counts(lbl.to(dev), rounds, strip_rows)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_strip_counts_kernel_states_its_rounds_limit(dev):
+    """The list lives in shared memory: min(rounds, strip pixels) past what
+    fits raises, with the number."""
+    lbl = torch.zeros((8, 8192), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        label_stats.strip_label_counts(lbl, 40000, 8)
+    small = torch.zeros((8, 16), dtype=torch.int32, device=dev)
+    got = label_stats.strip_label_counts(small, 40000, 8)    # 128 pixels
+    assert got[1].tolist() == [1] and got[0][0, :, 0].tolist() == [0, 128]
 
 
 def test_hough_kernels_count_their_launches(dev):

@@ -92,6 +92,21 @@ def test_hough_sht_exact(case):
     assert int(got.count()) == int(want.count()) > 0
 
 
+def test_hough_sht_exact_past_58112_rho_bins():
+    """A rho step so fine that a theta row (64,033 bins) is wider than a
+    block's shared memory on the card, where the kernel tiles rho: on the
+    CPU the port still equals the reference line for line."""
+    img = np.zeros((40, 50), np.uint8)
+    img[12, 4:46] = 255
+    img[3:37, 21] = 255
+    jcfg = jhough.HoughShtConfig(rho=0.002, threshold=20, max_lines=8,
+                                 max_edge_points=256)
+    want = jhough.hough_sht(jnp.asarray(img), jcfg)
+    got = hough.hough_sht(torch.from_numpy(img), config_from_reference(jcfg))
+    _assert_lines_equal(got, want)
+    assert int(got.count()) == int(want.count()) > 0
+
+
 def test_hough_sht_meets_golden():
     with open(os.path.join(_ROOT, "goldens", "goldens.json")) as f:
         gold = json.load(f)["hough_sht_summary"]

@@ -269,6 +269,10 @@ def test_wrapper_rejects_bad_inputs():
 # edge list dealt in groups of 128 slots to the S CTAs of a cluster, T
 # thetas a CTA, bins rounded by the magic-number add, S partial histograms
 # summed slice by slice, every element of the accumulator written once.
+# With ``shift`` the accumulator is rho-tiled as the kernel tiles a row that
+# is wider than a block's shared memory: a CTA holds 2^shift bins of its
+# thetas, a vote lands at its bin modulo the tile width and adds its weight
+# only in the bin's own tile.
 
 _GROUP = 128
 
@@ -285,31 +289,41 @@ def _magic_bins(x, y, cos_t, sin_t, rho_max, rho_step):
     return (clamped + magic).view(np.int32) - magic.view(np.int32)
 
 
-def _split_model(x, y, wt, n_theta, rho_max, rho_step, cos_t, sin_t, t, s):
+def _split_model(x, y, wt, n_theta, rho_max, rho_step, cos_t, sin_t, t, s,
+                 shift=None):
     n_rho = hough_kernel.n_rho_bins(rho_max, rho_step)
     e = x.numel()
     bins_all = _magic_bins(x, y, cos_t, sin_t, rho_max, rho_step)
     w = wt.numpy().astype(np.int64)
     group_of = np.arange(e) // _GROUP
-    acc = np.full(n_theta * n_rho, -12345, np.int64)
-    written = np.zeros(n_theta * n_rho, np.int64)
-    for t0 in range(0, n_theta, t):
-        nt = min(t, n_theta - t0)
-        bins = nt * n_rho
-        partial = np.zeros((s, bins), np.int64)
-        for rank in range(s):
-            mine = np.flatnonzero(group_of % s == rank)
-            for k in range(nt):
-                np.add.at(partial[rank], k * n_rho + bins_all[t0 + k, mine],
-                          w[mine])
-        per = (-(-bins // s) + 3) & ~3
-        for rank in range(s):
-            b0 = min(bins, rank * per)
-            b1 = min(bins, b0 + per)
-            acc[t0 * n_rho + b0:t0 * n_rho + b1] = partial[:, b0:b1].sum(0)
-            written[t0 * n_rho + b0:t0 * n_rho + b1] += 1
+    acc = np.full((n_theta, n_rho), -12345, np.int64)
+    written = np.zeros((n_theta, n_rho), np.int64)
+    pitch = n_rho if shift is None else 1 << shift
+    for tile in range(-(-n_rho // pitch)):
+        r0 = tile * pitch
+        for t0 in range(0, n_theta, t):
+            nt = min(t, n_theta - t0)
+            bins = nt * pitch
+            partial = np.zeros((s, bins), np.int64)
+            for rank in range(s):
+                mine = np.flatnonzero(group_of % s == rank)
+                for k in range(nt):
+                    b = bins_all[t0 + k, mine]
+                    np.add.at(partial[rank], k * pitch + b % pitch,
+                              np.where(b // pitch == tile, w[mine], 0))
+            per = (-(-bins // s) + 3) & ~3
+            for rank in range(s):
+                b0 = min(bins, rank * per)
+                b1 = min(bins, b0 + per)
+                for b in range(b0, b1, 4 if shift is not None else 1):
+                    width = 4 if shift is not None else 1
+                    col = r0 + b % pitch
+                    keep = max(0, min(width, n_rho - col))
+                    acc[t0 + b // pitch, col:col + keep] = \
+                        partial[:, b:b + keep].sum(0)
+                    written[t0 + b // pitch, col:col + keep] += 1
     assert (written == 1).all()
-    return acc.reshape(n_theta, n_rho)
+    return acc
 
 
 def _split_case(name):
@@ -363,3 +377,58 @@ def test_magic_rounding_is_rint_then_clip():
         want = np.clip(np.rint(np.nan_to_num(v.astype(np.float64), nan=0.0)),
                        0, top).astype(np.int64)
         np.testing.assert_array_equal(got, want)
+
+
+def _wide_case(n_theta=3):
+    """A list whose accumulator row is wider than the 58,112 bins a block's
+    shared memory holds (227 KB): a 60 x 80 map at a rho step of 0.003."""
+    rs = np.random.default_rng(37)
+    n = 700
+    x = rs.integers(0, 80, n).astype(np.float32)
+    y = rs.integers(0, 60, n).astype(np.float32)
+    wt = ((rs.random(n) < 0.6) * rs.integers(1, 4, n)).astype(np.int32)
+    cos_t, sin_t = hough_trig.theta_table(1.0)
+    pick = torch.linspace(0, 179, n_theta).long()
+    return (torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(wt),
+            n_theta, 100.0, 0.003, cos_t[pick].contiguous(),
+            sin_t[pick].contiguous())
+
+
+@pytest.mark.parametrize("t,s,shift", [(1, 1, 15), (1, 4, 15), (2, 2, 14),
+                                       (1, 8, 13)])
+def test_rho_tiled_split_model_equals_twin_past_shared_memory(t, s, shift):
+    args = _wide_case()
+    want = hough_kernel.sht_accumulate_ref(*args).numpy()
+    assert want.shape[1] == 66668 > 58112
+    got = _split_model(*args, t, s, shift)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == args[3] * int(args[2].sum())
+
+
+@pytest.mark.parametrize("shift", [2, 5, 7])
+@pytest.mark.parametrize("name", ["prefix", "E_1", "E_129", "scattered_heavy",
+                                  "theta_181", "rho_0.7"])
+def test_rho_tiled_split_model_equals_twin(name, shift):
+    """The same tiling at widths that leave a ragged last tile, rows that
+    start off 16 bytes and tiles narrower than a slice."""
+    args = _split_case(name)
+    want = hough_kernel.sht_accumulate_ref(*args).numpy()
+    got = _split_model(*args, 5, 3, shift)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wide_twin_equals_xla_twin_and_pallas_interpret(interpret_pallas):
+    """At an n_rho past the old kernel's limit the twin still equals the
+    jitted reference and the Pallas kernel."""
+    rs = np.random.default_rng(41)
+    h, w, rho_step = 60, 80, 0.003
+    x, y, wt = _edges(41, 400, h, w)
+    rho_max = float(np.hypot(h, w))
+    got = _port_twin(x, y, wt, 1.0, rho_max, rho_step)
+    assert got.shape[1] == 66668
+    np.testing.assert_array_equal(got, _jax_twin(x, y, wt, 1.0, rho_max,
+                                                 rho_step))
+    want = np.asarray(interpret_pallas(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(wt), 180, rho_max,
+        rho_step, float(np.deg2rad(1.0)), w, h))
+    np.testing.assert_array_equal(got, want)
