@@ -13,6 +13,13 @@ be timed in turns on one card:
 
     python3 chip_smoke.py --text-kernel-times [--package-root DIR]
 
+With --sfm-128 it only makes goldens/sfm_128.json's run (phase 13's third
+run, without the resume) and prints its numbers, with the count of Schur
+steps whose reduced system failed to factor or held a non-finite entry;
+--package-root takes the package from another checkout here too:
+
+    python3 chip_smoke.py --sfm-128 [--package-root DIR]
+
 Phases, each printing its lines before the last:
   1. device and build: the card's name and power limit, the five kernel
      sources built in parallel (one nvcc each), their ptxas lines;
@@ -67,8 +74,9 @@ Phases, each printing its lines before the last:
      counter K5 against its twin, exact, on the text binary's labels and
      every changed level of the MSER ladder, on a truncating case, on
      strips of 8 x 8192 and 16 x 4096 labels and on a map of per-pixel
-     distinct labels; K5's merged counts against torch.bincount and
-     CclResult.area;
+     distinct labels, and at rounds 11,520 and 65,536 (its list in device
+     memory, past a block's shared memory); K5's merged counts against
+     torch.bincount and CclResult.area;
  10. the Hough slice: features.canny + features.hough.hough_sht and
      hough_kht on the 720p scene, calib.checkerboard.find_chessboard_corners
      on a rendered 6x8 board 720 rows tall at 12 degrees, with K4's launch
@@ -81,7 +89,25 @@ Phases, each printing its lines before the last:
      their twins, as medians of CUDA-event timings; K4 also at the
      checkerboard's 16,384-slot list and at the 2160x3840 map's 88,118-bin
      accumulator, and one sht_accumulate call as the nodes of a captured
-     CUDA graph (one kernel); K5 also on wide strips and per-pixel labels.
+     CUDA graph (one kernel); K5 also on wide strips and per-pixel labels;
+ 12. SfM components on the card against the port on the CPU, same inputs:
+     find_essential and solve_pnp (sample indices and inliers exact, poses
+     within 2e-4 / 1e-4), ba_step on the golden BA problem (goldens.json's
+     cost and camera hash), ba_solve and ba_solve_schur on a 32-camera,
+     32,768-observation problem (cost and parameters within tolerance, two
+     card runs bit-identical);
+ 13. the SfM slice at full width: sfm_ate at goldens/sfm.json (8 frames,
+     240x320) and sfm_long.json (32 frames, 480x640, run twice, identical),
+     each held to the reference tests' bars, with K1's launches per
+     run_sfm; the 128-frame 480x640 run of scripts/make_goldens.py's
+     sfm_128_config (Schur, an 8-frame window, checkpoints) held to
+     sfm_128.json's bars, and resume_sfm from its last checkpoint; a
+     6-frame 120x160 run on the card against the CPU (tracks, bootstrap
+     pair and essential inliers equal);
+ 14. times of the SfM slice at sfm_long: run_sfm per frame split by stage
+     (CUDA events around each stage, median of 3 runs), one ba_solve and
+     one ba_solve_schur at the final BA's shape, and device busy, idle
+     share and launches per frame under torch.profiler.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -168,31 +194,35 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
 PROFILER = {"windows": 0, "empty": 0, "fallbacks": 0}
 
 
-def device_events(fn, calls: int = 1, attempts: int = 3):
+def device_events(fn, calls: int = 1, attempts: int = 3, warm: bool = True):
     """(events, wall ms per call): the device-side events (kernels, copies,
-    memsets) torch.profiler records while ``fn`` runs ``calls`` times after
-    one warm call, each as (name, microseconds), and the host wall time of
-    the profiled window. A window that comes back without a device event is
-    taken again, ``attempts`` times in all; ``events`` is empty when none
-    of them recorded one, and the caller measures another way."""
+    memsets) torch.profiler records while ``fn`` runs ``calls`` times (after
+    one warm call, unless ``warm`` is False), each as (name, microseconds),
+    and the host wall time of the profiled window. The events are read
+    from the trace's raw records of device activity (the parse into
+    FunctionEvents takes minutes at a million events and is never made). A
+    window that comes back without a device event is taken again,
+    ``attempts`` times in all; ``events`` is empty when none of them
+    recorded one, and the caller measures another way."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     events, wall_ms = [], None
     if "--no-profiler" in sys.argv:   # every reading takes its other way
         attempts = 0
     for _ in range(attempts):
         torch.cuda.synchronize()
         PROFILER["windows"] += 1
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [(e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
         if events:
             break
         PROFILER["empty"] += 1
@@ -1285,6 +1315,14 @@ def phase9_hough_kernels_vs_twins(dev, scene: np.ndarray, text: np.ndarray,
                 ("per_pixel_labels_rounds_11000", torch.arange(
                     16 * 1122, dtype=torch.int32, device=dev
                 ).reshape(16, 1122), 11000)]
+    # lists past a block's shared memory (min(rounds, strip pixels) >
+    # 11,519): the kernel's form with its buffers in device memory
+    per_pixel_wide = torch.arange(24 * 8192, dtype=torch.int32,
+                                  device=dev).reshape(24, 8192)
+    k5_maps += [("wide_8x8192_rounds_11520", wide, 11520),
+                ("per_pixel_8x8192_rounds_11520", per_pixel_wide, 11520),
+                ("per_pixel_8x8192_desc_rounds_65536",
+                 per_pixel_wide.flip(1).contiguous(), 65536)]
     truncating = 0
     merged_checked = 0
     for name, lbl, rounds in k5_maps:
@@ -1567,6 +1605,478 @@ def phase11_hough_times(card: str, gray, edges, board, text_labels):
     return times, bounds
 
 
+# ---------------------------------------------------------------------------
+# the SfM path: run_sfm (ORB on every frame through K1, essential bootstrap,
+# PnP, triangulation, local and final BA), its components and its times
+
+
+def load_golden(name: str) -> dict:
+    with open(os.path.join(ROOT, "goldens", name)) as f:
+        return json.load(f)
+
+
+def np_rodrigues(rvec: np.ndarray) -> np.ndarray:
+    """Rotation matrix of an axis-angle vector, in float64 numpy."""
+    theta = float(np.linalg.norm(rvec))
+    if theta < 1e-12:
+        return np.eye(3)
+    k = rvec / theta
+    km = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * km + (1 - np.cos(theta)) * (km @ km)
+
+
+def ba_scene(f: int, l: int, o: int, seed: int = 17) -> dict:
+    """A BA problem of ``f`` cameras, ``l`` landmarks and ``o``
+    observations (random pairs, all in front of their camera): 0.5 px noise,
+    2% of the pixels off by 25 px, cameras 2.. and every landmark perturbed;
+    cameras 0 and 1 stay at the truth (pinned by the windowed solves)."""
+    rs = np.random.default_rng(seed)
+    cams = np.concatenate([rs.normal(0, 0.05, (f, 3)),
+                           rs.normal(0, 0.4, (f, 3))], 1)
+    lms = rs.uniform(-2, 2, (l, 3)) + [0, 0, 7.0]
+    ci = rs.integers(0, f, o)
+    li = rs.integers(0, l, o)
+    rot = np.stack([np_rodrigues(c[:3]) for c in cams])
+    pc = np.einsum("oij,oj->oi", rot[ci], lms[li]) + cams[ci, 3:]
+    uv = 400.0 * pc[:, :2] / pc[:, 2:3] + [320.0, 240.0]
+    uv += rs.normal(0, 0.5, uv.shape)
+    uv[rs.random(o) < 0.02] += 25.0
+    cams_n = cams + rs.normal(0, 0.005, cams.shape)
+    cams_n[:2] = cams[:2]
+    return {"cameras": cams_n.astype(np.float32),
+            "landmarks": (lms + rs.normal(0, 0.02, lms.shape)
+                          ).astype(np.float32),
+            "intrinsics": np.array([400.0, 400.0, 320.0, 240.0], np.float32),
+            "cam_idx": ci.astype(np.int32), "lm_idx": li.astype(np.int32),
+            "uv": uv.astype(np.float32), "valid": np.ones(o, bool)}
+
+
+def phase12_sfm_components(dev) -> dict:
+    from compv_tpu_torch.calib import epipolar as te
+    from compv_tpu_torch.calib import pnp as tp
+    from compv_tpu_torch.calib.homography import _masked_sample_idx
+    from compv_tpu_torch.core.golden import quantized_hash
+    from compv_tpu_torch.interop import ba_problem_from_numpy
+    from compv_tpu_torch.ops import threefry
+    from compv_tpu_torch.slam import ba as tba
+    from compv_tpu_torch.slam import ba_schur as tbs
+
+    out = {}
+    # find_essential: tests/test_epipolar.py's two-view scene, 45 of 150
+    # correspondences replaced by random pixels, 1024 hypotheses
+    rs = np.random.default_rng(1)
+    k = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]],
+                 np.float32)
+    pts = rs.uniform(-1, 1, (150, 3)) + [0, 0, 4.0]
+    r_true = np_rodrigues(np.array([0.05, -0.12, 0.03]))
+
+    def proj(p):
+        return p[:, :2] / p[:, 2:3] * 500.0 + [320.0, 240.0]
+
+    p1 = proj(pts)
+    p2 = proj(pts @ r_true.T + [0.4, 0.05, 0.02])
+    bad = rs.choice(150, 45, replace=False)
+    p2[bad] = rs.uniform(0, 640, (45, 2))
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (p1, p2)] + [
+        torch.from_numpy(k), torch.ones(150, dtype=torch.bool)]
+    cfg = te.EssentialConfig(num_hypotheses=1024)
+    samples = [threefry.randint((0, 0), (1024, 8), 0,
+                                torch.tensor(150, device=d), d).cpu()
+               for d in (dev, "cpu")]
+    check(torch.equal(*samples), "randint on the card != on the CPU")
+    card = te.find_essential(*[a.to(dev) for a in args], cfg)
+    cpu = te.find_essential(*args, cfg)
+    check(torch.equal(card.inliers.cpu(), cpu.inliers),
+          "find_essential inliers: card != CPU")
+    e_c, e_h = card.e.cpu(), cpu.e
+    e_err = min(float((e_c - e_h).abs().max()), float((e_c + e_h).abs().max()))
+    pose_err = max(float((card.rvec.cpu() - cpu.rvec).abs().max()),
+                   float((card.tvec.cpu() - cpu.tvec).abs().max()))
+    check(e_err <= 2e-4 and pose_err <= 2e-4,
+          f"find_essential: E {e_err}, pose {pose_err} from the CPU's")
+    out["essential"] = {"inliers": int(card.num_inliers), "e_err": e_err,
+                        "pose_err": pose_err}
+
+    # solve_pnp: tests/test_sfm.py's pose scene, 20 of 64 points off by
+    # 30-90 px, padded to 128
+    rs = np.random.default_rng(3)
+    kp = np.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]], np.float32)
+    pts = rs.uniform(-2, 2, (64, 3)) + [0, 0, 6.0]
+    pc = pts @ np_rodrigues(np.array([0.05, -0.1, 0.03])).T + [0.2, -0.1, 0.4]
+    px = pc[:, :2] / pc[:, 2:3] * 400.0 + [160.0, 120.0]
+    px[rs.choice(64, 20, replace=False)] += rs.uniform(30, 90, (20, 2))
+    p3 = np.zeros((128, 3), np.float32)
+    p2d = np.zeros((128, 2), np.float32)
+    p3[:64], p2d[:64] = pts, px
+    m = np.arange(128) < 64
+    args = [torch.from_numpy(a) for a in (p3, p2d, kp, m)]
+    idx = [_masked_sample_idx(0, args[3].to(d), 256, 6).cpu()
+           for d in (dev, "cpu")]
+    check(torch.equal(*idx), "PnP sample indices: card != CPU")
+    card = tp.solve_pnp(*[a.to(dev) for a in args], tp.PnpConfig())
+    cpu = tp.solve_pnp(*args, tp.PnpConfig())
+    check(torch.equal(card.inliers.cpu(), cpu.inliers),
+          "solve_pnp inliers: card != CPU")
+    pose_err = max(float((card.rvec.cpu() - cpu.rvec).abs().max()),
+                   float((card.tvec.cpu() - cpu.tvec).abs().max()))
+    check(pose_err <= 1e-4, f"solve_pnp pose {pose_err} from the CPU's")
+    out["pnp"] = {"inliers": int(card.num_inliers), "pose_err": pose_err}
+
+    # ba_step on the golden BA problem (scripts/make_goldens.py:113-129)
+    golden = load_golden("goldens.json")
+    rs = np.random.default_rng(23)
+    f, l, o = 16, 200, 1600
+    cams = np.concatenate([rs.normal(0, 0.05, (f, 3)),
+                           rs.normal(0, 0.5, (f, 3)) + [0, 0, 4]], 1)
+    lms = rs.normal(0, 1.5, (l, 3)) + [0, 0, 8]
+    gp = ba_problem_from_numpy({
+        "cameras": cams, "landmarks": lms,
+        "intrinsics": [400.0, 400.0, 240.0, 180.0],
+        "cam_idx": rs.integers(0, f, o), "lm_idx": rs.integers(0, l, o),
+        "uv": rs.normal(0, 40.0, (o, 2)) + 200,
+        "valid": np.ones((o,), bool)}, dev)
+    p1, _, cost = tba.ba_step(gp, torch.tensor(1e-3, device=dev),
+                              tba.BAConfig(cg_iterations=8))
+    got = {"ba_step_cost_before": round(float(cost), 1),
+           "ba_step_cam_hash_q3": quantized_hash(p1.cameras, 3)}
+    for name, value in got.items():
+        check(value == golden[name], f"{name} {value} != {golden[name]}")
+    out["ba_goldens"] = "met"
+
+    # ba_solve / ba_solve_schur on a mid-size problem, cameras 0 and 1
+    # pinned: card against CPU, and a second card run
+    arrs = ba_scene(32, 4096, 32768)
+    mask = np.arange(32) >= 2
+    # landmarks of 1-3 observations are nearly free along their rays (the
+    # damping alone holds them): compared are those seen 4 times or more
+    seen = torch.from_numpy(np.bincount(arrs["lm_idx"], minlength=4096) >= 4)
+    solves = {
+        "ba_solve": lambda p, cm: tba.ba_solve(
+            p, tba.BAConfig(iterations=8, cg_iterations=30,
+                            robust_delta=3.0), cm),
+        "ba_solve_schur": lambda p, cm: tbs.ba_solve_schur(
+            p, tbs.SchurConfig(iterations=6, robust_delta=3.0), cm)}
+    for name, solve in solves.items():
+        runs = [solve(ba_problem_from_numpy(arrs, d),
+                      torch.from_numpy(mask).to(d)) for d in (dev, dev, "cpu")]
+        (a, ca), (b, cb), (h, ch) = runs
+        check(torch.equal(a.cameras, b.cameras)
+              and torch.equal(a.landmarks, b.landmarks)
+              and torch.equal(ca, cb), f"{name}: two card runs differ")
+        cost_rel = abs(float(ca) - float(ch)) / float(ch)
+        cam_err = float((a.cameras.cpu() - h.cameras).abs().max())
+        lm_err = float((a.landmarks.cpu() - h.landmarks)[seen].abs().max())
+        out[name] = {"cost_card": float(ca), "cost_cpu": float(ch),
+                     "cost_rel": cost_rel, "cam_err": cam_err,
+                     "lm_err": lm_err, "landmarks_compared":
+                     int(seen.sum()),
+                     "rmse_before": float(tba.reproj_rmse(
+                         ba_problem_from_numpy(arrs)))}
+        check(cost_rel <= 1e-3 and cam_err <= 1e-3 and lm_err <= 1e-2,
+              f"{name}: card vs CPU {out[name]}")
+    torch.cuda.synchronize()
+    emit({"phase": 12, **out,
+          "tolerances": "E 2e-4 up to sign, essential pose 2e-4, PnP pose "
+                        "1e-4; BA cost 1e-3 relative, cameras 1e-3, "
+                        "landmarks seen 4 times or more 1e-2 (depth ~7)"})
+    return out
+
+
+def sfm_bars(ate: float, res, gt, golden: dict, what: str,
+             span_pct: float = 3.0) -> dict:
+    """The reference tests' bars (tests/test_sfm.py): ATE and RPE within 2x
+    the golden, ATE under ``span_pct`` % of the trajectory's span, BA
+    lowering the reprojection error to under 2.5 px."""
+    from compv_tpu_torch.slam.evaluate import rpe_rmse
+
+    rpe = float(rpe_rmse(torch.tensor(res.positions, dtype=torch.float32),
+                         torch.tensor(gt, dtype=torch.float32)))
+    span = float(np.linalg.norm(gt[-1] - gt[0]))
+    row = {"ate": ate, "golden_ate": golden["ate_rmse"], "rpe": rpe,
+           "golden_rpe": golden["rpe_rmse"], "ate_pct_of_span":
+           100 * ate / span, "reproj_before": res.reproj_before,
+           "reproj_after": res.reproj_after, "num_tracks": res.num_tracks,
+           "num_obs": res.num_obs}
+    check(ate <= 2 * golden["ate_rmse"] and rpe <= 2 * golden["rpe_rmse"]
+          and 100 * ate / span < span_pct
+          and res.reproj_after < res.reproj_before
+          and res.reproj_after < 2.5, f"{what} misses its bars: {row}")
+    check(np.isfinite(res.positions).all() and res.positions.shape
+          == (len(gt), 3), f"{what}: positions not finite or misshapen")
+    return row
+
+
+def sfm_128_config():
+    """scripts/make_goldens.py:169-178: Schur solver, an 8-frame window,
+    checkpoints every 16 frames, 131,072 observations, 16,384 landmarks."""
+    from compv_tpu_torch.slam.sfm import SfmConfig
+
+    return SfmConfig(solver="schur", local_window=8, checkpoint_every=16,
+                     max_obs=131072, max_landmarks=16384)
+
+
+def sfm_128_run(dev, resume: bool) -> dict:
+    """goldens/sfm_128.json's run (Schur, an 8-frame window, checkpoints
+    every 16 frames) held to its bars, and with ``resume`` then
+    ``resume_sfm`` from its last checkpoint held to the resume bar. Also
+    counts the Schur steps whose reduced system S failed to factor, and
+    those where S held a non-finite entry (a waiting read of each step's
+    factorization)."""
+    from compv_tpu_torch.slam import sfm as ts
+    from compv_tpu_torch.slam.evaluate import ate_rmse
+
+    g = load_golden("sfm_128.json")
+    seq = g["sequence"]
+    frames, gt, k = ts.render_orbit_sequence(seq["n_frames"], seq["h"],
+                                             seq["w"], device=dev)
+    ckpt = os.path.join(ROOT, "build", "sfm_128_checkpoints")
+    if os.path.isdir(ckpt):
+        for name in os.listdir(ckpt):
+            os.remove(os.path.join(ckpt, name))
+    steps = {"schur_steps": 0, "s_not_factored": 0, "s_not_finite": 0}
+    factor = torch.linalg.cholesky_ex
+
+    def counted(a, **kwargs):
+        fac = factor(a, **kwargs)
+        steps["schur_steps"] += 1
+        steps["s_not_factored"] += int(fac.info != 0)
+        steps["s_not_finite"] += int(not torch.isfinite(a).all())
+        return fac
+
+    torch.linalg.cholesky_ex = counted
+    try:
+        t0 = time.perf_counter()
+        res = ts.run_sfm(frames, k, sfm_128_config(), checkpoint_dir=ckpt,
+                         device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        torch.linalg.cholesky_ex = factor
+
+    def ate_of(r):
+        return float(ate_rmse(torch.tensor(r.positions, dtype=torch.float32),
+                              torch.tensor(gt, dtype=torch.float32)))
+
+    # the mid-run trajectory, before the final BA: the last checkpoint's
+    from compv_tpu_torch.io.serialize import load_checkpoint
+    from compv_tpu_torch.slam.ba import rodrigues_to_matrix
+
+    cams = load_checkpoint(os.path.join(ckpt, f"step_{seq['n_frames']}.pt"))[
+        "cams"].to(torch.float32)
+    centers = -(rodrigues_to_matrix(cams[:, :3]).mT
+                @ cams[:, 3:, None])[:, :, 0]
+    steps["ate_before_final_ba"] = float(ate_rmse(
+        centers, torch.tensor(gt, dtype=torch.float32)))
+    emit({"sfm_128_480p_schur": {"run_s": run_s, **steps}})
+    ate = ate_of(res)
+    out = {**sfm_bars(ate, res, gt, g, "sfm_128.json", span_pct=2.5),
+           "run_s": run_s, **steps}
+    if resume:
+        check(steps["s_not_finite"] == 0,
+              f"sfm_128: a Schur step's S held a non-finite entry: {steps}")
+        names = sorted(os.listdir(ckpt))
+        check(names == [f"step_{seq['n_frames']}.pt"],
+              f"checkpoints written: {names}")
+        resumed = ts.resume_sfm(os.path.join(ckpt, names[-1]),
+                                sfm_128_config(), device=dev)
+        span = float(np.linalg.norm(gt[-1] - gt[0]))
+        ate_r = ate_of(resumed)
+        check(ate_r <= max(1.5 * ate, 0.03 * span),
+              f"resume_sfm ATE {ate_r} vs direct {ate}")
+        out["resumed_ate"] = ate_r
+    return out
+
+
+def phase13_sfm_slice(dev) -> dict:
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.slam import sfm as ts
+
+    out = {}
+    # goldens/sfm.json: 8 frames at 240x320, the default config
+    g = load_golden("sfm.json")["sequence"]
+    frames, gt, k = ts.render_orbit_sequence(g["n_frames"], g["h"], g["w"],
+                                             device=dev)
+    torch.cuda.synchronize()
+    fk.launches = 0
+    ate, res = ts.sfm_ate(frames, gt, k, device=dev)
+    torch.cuda.synchronize()
+    out["sfm_8_240p"] = {**sfm_bars(ate, res, gt, load_golden("sfm.json"),
+                                    "sfm.json"), "k1_launches": fk.launches}
+    check(fk.launches == 4 * g["n_frames"],
+          f"K1 launches {fk.launches} != 4 levels x {g['n_frames']} frames")
+
+    # goldens/sfm_long.json: 32 frames at 480x640, twice
+    g = load_golden("sfm_long.json")
+    seq = g["sequence"]
+    cfg = ts.SfmConfig(max_obs=65536, max_landmarks=8192)
+    frames, gt, k = ts.render_orbit_sequence(seq["n_frames"], seq["h"],
+                                             seq["w"], device=dev)
+    torch.cuda.synchronize()
+    fk.launches = 0
+    ate, res = ts.sfm_ate(frames, gt, k, cfg, device=dev)
+    torch.cuda.synchronize()
+    k1_sfm = fk.launches
+    check(k1_sfm == 4 * seq["n_frames"],
+          f"K1 launches {k1_sfm} != 4 levels x {seq['n_frames']} frames")
+    ate2, res2 = ts.sfm_ate(frames, gt, k, cfg, device=dev)
+    for name in ("positions", "cameras", "landmarks", "landmark_valid"):
+        check(np.array_equal(getattr(res, name), getattr(res2, name)),
+              f"sfm_long: a second card run differs in {name}")
+    check(ate == ate2 and res.frame_stats == res2.frame_stats,
+          "sfm_long: a second card run differs")
+    out["sfm_32_480p"] = {**sfm_bars(ate, res, gt, g, "sfm_long.json"),
+                          "k1_launches": k1_sfm,
+                          "second_run": "identical"}
+
+    # goldens/sfm_128.json: the production-shaped run, then resume_sfm from
+    # its last checkpoint
+    out["sfm_128_480p_schur"] = sfm_128_run(dev, resume=True)
+
+    # 6 frames at 120x160: the card against the port on the CPU
+    frames, gt, k = ts.render_orbit_sequence(6, 120, 160, device=dev)
+    span = float(np.linalg.norm(gt[-1] - gt[0]))
+    frames_cpu = ts.render_orbit_sequence(6, 120, 160, device="cpu")[0]
+    check(np.array_equal(frames, frames_cpu), "render: card != CPU")
+    cfg = ts.SfmConfig(max_obs=4096, max_landmarks=1024)
+    calls = {}
+    inner = ts.find_essential
+
+    def rec(src, dst, kk, mask, config):
+        res_e = inner(src, dst, kk, mask, config)
+        calls[src.device.type] = (src.cpu(), dst.cpu(), res_e.inliers.cpu())
+        return res_e
+
+    ts.find_essential = rec
+    try:
+        ate_card, card = ts.sfm_ate(frames, gt, k, cfg, device=dev)
+        ate_cpu, cpu = ts.sfm_ate(frames, gt, k, cfg, device="cpu")
+    finally:
+        ts.find_essential = inner
+    check(card.num_tracks == cpu.num_tracks, "6-frame tracks: card != CPU")
+    check(all(torch.equal(a, b) for a, b in zip(calls["cuda"], calls["cpu"])),
+          "6-frame bootstrap pair or essential inliers: card != CPU")
+    check(ate_card <= max(1.5 * ate_cpu, 0.03 * span),
+          f"6-frame ATE {ate_card} on the card vs {ate_cpu} on the CPU")
+    out["sfm_6_120p_card_vs_cpu"] = {
+        "tracks": card.num_tracks, "essential_inliers":
+        int(calls["cpu"][2].sum()), "ate_card": ate_card, "ate_cpu": ate_cpu}
+    emit({"phase": 13, **out,
+          "bars": "ATE, RPE <= 2x golden; ATE < 3% of span (2.5% at 128 "
+                  "frames); reproj after < before and < 2.5 px; resume "
+                  "ATE <= max(1.5x direct, 3% of span); 6-frame ATE on the "
+                  "card <= max(1.5x the CPU's, 3% of span)"})
+    return out
+
+
+STAGES = {"orb_detect_describe": "frontend_orb",
+          "_match_step": "frontend_match", "find_essential": "essential",
+          "solve_pnp": "pnp", "_triangulate_pair": "triangulation",
+          "_solve": "local_ba", "_finalize_sfm": "final_ba"}
+
+
+@contextlib.contextmanager
+def stage_timer(ts, totals: dict, captured: dict):
+    """Wrap run_sfm's stages with CUDA events (summed per stage into
+    ``totals`` after the run); a BA inside _finalize_sfm counts as the
+    final BA; the first problem the final BA solves is kept in
+    ``captured``."""
+    saved = {name: getattr(ts, name) for name in STAGES}
+    marks = []
+    inside = []
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            if name == "_solve" and inside:
+                captured.setdefault("final_problem", args[0])
+                return fn(*args, **kwargs)
+            if name == "_finalize_sfm":
+                inside.append(True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                end.record()
+                marks.append((STAGES[name], start, end))
+                if name == "_finalize_sfm":
+                    inside.clear()
+        return timed
+
+    for name, fn in saved.items():
+        setattr(ts, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ts, name, fn)
+        torch.cuda.synchronize()
+        for stage, start, end in marks:
+            totals[stage] = totals.get(stage, 0.0) + start.elapsed_time(end)
+
+
+def phase14_sfm_times(dev, card: str) -> dict:
+    from compv_tpu_torch.slam import ba as tba
+    from compv_tpu_torch.slam import ba_schur as tbs
+    from compv_tpu_torch.slam import sfm as ts
+
+    g = load_golden("sfm_long.json")["sequence"]
+    n = g["n_frames"]
+    cfg = ts.SfmConfig(max_obs=65536, max_landmarks=8192)
+    frames, gt, k = ts.render_orbit_sequence(n, g["h"], g["w"], device=dev)
+    runs, captured = [], {}
+    for _ in range(3):
+        totals = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with stage_timer(ts, totals, captured):
+            start.record()
+            ts.run_sfm(frames, k, cfg, device=dev)
+            end.record()
+        torch.cuda.synchronize()
+        totals["run_sfm"] = start.elapsed_time(end)
+        runs.append(totals)
+    per_frame = {stage: statistics.median(r.get(stage, 0.0) for r in runs) / n
+                 for stage in runs[0]}
+    other = per_frame["run_sfm"] - sum(v for s, v in per_frame.items()
+                                       if s != "run_sfm")
+
+    # one ba_solve and one ba_solve_schur at the final BA's shape
+    prob = captured["final_problem"]
+    ba_ms = cuda_ms(lambda: tba.ba_solve(prob, cfg.ba), reps=3)
+    schur_ms = cuda_ms(lambda: tbs.ba_solve_schur(prob, tbs.SchurConfig(
+        iterations=cfg.ba.iterations, damping=cfg.ba.damping,
+        robust_delta=cfg.ba.robust_delta)), reps=3)
+
+    # device busy, idle share and launches per frame under torch.profiler
+    wall_ms = per_frame["run_sfm"] * n
+    events, prof_wall = device_events(lambda: ts.run_sfm(
+        frames, k, cfg, device=dev), warm=False)
+    kernels = [e for e in events if not e[0].startswith("Memcpy")
+               and not e[0].startswith("Memset")]
+    busy_ms = sum(us for _, us in events) / 1e3
+    prof = ({"busy_ms_per_frame": busy_ms / n,
+             "idle_share": 1 - busy_ms / wall_ms,
+             "kernel_launches_per_frame": len(kernels) / n,
+             "device_ops_per_frame": len(events) / n,
+             "profiled_wall_ms_per_frame": prof_wall / n}
+            if events else {"busy_ms_per_frame": None, "idle_share": None,
+                            "kernel_launches_per_frame": None})
+    if not events:
+        PROFILER["fallbacks"] += 1
+    out = {"ms_per_frame": per_frame, "other_host_ms_per_frame": other,
+           "final_ba_shape": {"cameras": int(prob.cameras.shape[0]),
+                              "landmarks": int(prob.landmarks.shape[0]),
+                              "obs_slots": int(prob.cam_idx.shape[0]),
+                              "obs_valid": int(prob.valid.sum())},
+           "ba_solve_ms": ba_ms, "ba_solve_schur_ms": schur_ms,
+           "profile": prof}
+    emit({"phase": 14, "card": card, "at": "sfm_long (32 frames, 480x640)",
+          **out, "timing": "median over 3 runs of CUDA events around each "
+          "stage; BA solves: median of 3 CUDA-event timings after warm-up"})
+    return out
+
+
 def text_kernel_times(package_root: str) -> int:
     """From the package under ``package_root``: K2a, K2b (mean and per
     level over the text ladder), K3's wrapper and K5 at the text scene's
@@ -1662,13 +2172,21 @@ def text_kernel_times(package_root: str) -> int:
 
 
 def main() -> int:
+    root = ROOT
+    if "--package-root" in sys.argv:
+        root = sys.argv[sys.argv.index("--package-root") + 1]
     if "--text-kernel-times" in sys.argv[1:]:
-        root = ROOT
-        if "--package-root" in sys.argv:
-            root = sys.argv[sys.argv.index("--package-root") + 1]
         return text_kernel_times(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--sfm-128" in sys.argv[1:]:
+        # the 128-frame golden run alone, from the package under root
+        sys.path.insert(0, root)
+        from compv_tpu_torch.device import require_cuda
+
+        emit({"package_root": os.path.abspath(root), "card": card_line(),
+              "sfm_128_480p_schur": sfm_128_run(require_cuda(), False)})
+        return 0
     sys.path.insert(0, ROOT)
     dev, card = phase1_device_and_build()
     scene, text = scenes()
@@ -1685,6 +2203,9 @@ def main() -> int:
         dev, scene, text)
     k45_times, k45_bounds = phase11_hough_times(card, gray, edges, board,
                                                 labels)
+    phase12_sfm_components(dev)
+    sfm = phase13_sfm_slice(dev)
+    phase14_sfm_times(dev, card)
     times.update(k45_times)
     bounds.update(k45_bounds)
     launches["K1"] = k1_launches
@@ -1703,7 +2224,10 @@ def main() -> int:
         "launches": launches[kid], "max_abs_err": errs[kid],
         "ms": times[kid][0], "plain_ms": times[kid][1],
         "device_ms": times[kid][2], "bound_ms": bounds[kid]["bound_ms"],
-        "bound_by": bounds[kid]["bound_by"], "library_ms": None}
+        "bound_by": bounds[kid]["bound_by"], "library_ms": None,
+        **({"launches_per_run_sfm": sfm["sfm_32_480p"]["k1_launches"],
+            "run_sfm_at": "sfm_long, 32 frames at 480x640"}
+           if kid == "K1" else {})}
         for kid, (name, source, replaces) in KERNELS.items()]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu",

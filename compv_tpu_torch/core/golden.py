@@ -1,14 +1,17 @@
 """Golden-value helpers: copies of ``compv_tpu/core/golden.py``
-``ccl_summary``, ``lines_summary`` and ``mser_summary``, which that module
-cannot lend (it imports ``jax.numpy``). They read numpy arrays, and tensors
-on any device; ``tests/test_torch_ccl.py`` and ``tests/test_torch_hough.py``
-prove each copy equal to its original.
+``ccl_summary``, ``lines_summary``, ``mser_summary`` and ``quantized_hash``,
+which that module cannot lend (it imports ``jax.numpy``). They read numpy
+arrays, and tensors on any device; ``tests/test_torch_ccl.py``,
+``tests/test_torch_hough.py`` and ``tests/test_torch_ba.py`` prove each
+copy equal to its original.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
-__all__ = ["ccl_summary", "lines_summary", "mser_summary"]
+__all__ = ["ccl_summary", "lines_summary", "mser_summary", "quantized_hash"]
 
 
 def _np(x) -> np.ndarray:
@@ -55,3 +58,11 @@ def mser_summary(res) -> dict:
         "sum_seed_y": int(_np(res.seed_y)[v].sum()),
         "overflowed": int(_np(res.overflowed)),
     }
+
+
+def quantized_hash(arr, decimals: int = 3) -> str:
+    """Tolerance-hash for float outputs: round to ``decimals``, then MD5.
+    Stable across backends as long as values agree to 10^-decimals."""
+    a = np.asarray(_np(arr), dtype=np.float64)
+    q = np.round(a, decimals) + 0.0  # +0.0 normalizes -0.0
+    return hashlib.md5(q.tobytes()).hexdigest()

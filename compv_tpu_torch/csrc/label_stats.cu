@@ -55,6 +55,13 @@
 //   * Reading is a chain of latencies too: the loads of the next step are
 //     in flight while this step's labels are balloted, and a warp takes its
 //     room in the buffer with one atomicAdd a step.
+//   * Where the buffer and the list do not fit in a block's shared memory
+//     (min(rounds, strip pixels) above 11,519 on an H100), the kernel's
+//     second form (kGlobal) keeps them in a scratch area of device memory,
+//     one slice a strip, and only the hash table in shared memory. The
+//     steps are the same; __syncthreads orders the block's global accesses
+//     as it does its shared ones. The form that fits keeps its code: the
+//     template lets the compiler see that its buffer is shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -269,16 +276,22 @@ __device__ void flush(pair_t* buf, pair_t* list, const Table& table,
   __syncthreads();
 }
 
+// kGlobal: the buffer (buf_keys keys) and the list (cap + 1 pairs) of
+// strip s are scratch + s * (buf_keys + cap + 1), and the dynamic shared
+// memory holds the table alone; else all three are in shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
     strip_counts(const int32_t* __restrict__ labels, int h, int w,
                  int strip_rows, int rounds, int cap, int buf_keys,
                  int32_t* __restrict__ records, int32_t* __restrict__ used,
-                 int32_t* __restrict__ truncated) {
+                 int32_t* __restrict__ truncated, pair_t* scratch) {
   extern __shared__ __align__(8) pair_t smem[];
-  pair_t* buf = smem;               // buf_keys keys
-  pair_t* list = smem + buf_keys;   // cap + 1 pairs
+  pair_t* buf = kGlobal ? scratch + static_cast<size_t>(blockIdx.x)
+                                        * (buf_keys + cap + 1)
+                        : smem;
+  pair_t* list = buf + buf_keys;
   Table table;
-  table.labels = reinterpret_cast<int32_t*>(list + cap + 1);
+  table.labels = reinterpret_cast<int32_t*>(kGlobal ? smem : list + cap + 1);
   table.counts = table.labels + kSlots;
   __shared__ State st;
 
@@ -387,12 +400,26 @@ int compv_strip_label_counts(const int32_t* labels, int h, int w,
   const size_t smem =
       (static_cast<size_t>(buf_keys) + cap + 1 + kSlots) * sizeof(pair_t);
   cudaError_t err = cudaFuncSetAttribute(
-      strip_counts, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      strip_counts<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  strip_counts<<<n_strips, kThreads, smem, stream>>>(
+  strip_counts<false><<<n_strips, kThreads, smem, stream>>>(
       labels, h, w, strip_rows, rounds, cap, buf_keys, records, used,
-      truncated);
+      truncated, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with the buffers in device memory: scratch holds n_strips *
+// (buf_keys + cap + 1) pairs (8 bytes each), written before it is read.
+int compv_strip_label_counts_global(const int32_t* labels, int h, int w,
+                                    int strip_rows, int n_strips, int rounds,
+                                    int cap, int buf_keys, int32_t* records,
+                                    int32_t* used, int32_t* truncated,
+                                    pair_t* scratch, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kSlots) * sizeof(pair_t);
+  strip_counts<true><<<n_strips, kThreads, smem, stream>>>(
+      labels, h, w, strip_rows, rounds, cap, buf_keys, records, used,
+      truncated, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,8 @@ package.
 
 No function here imports ``compv_tpu`` (its package init pulls in JAX):
 configs are matched by class name and copied field by field, and
-keypoints, results and state maps (label maps, seeded ``init`` maps)
-travel as numpy arrays.
+keypoints, results, BA problems and state (label maps, seeded ``init``
+maps, an SfM checkpoint's state) travel as numpy arrays.
 """
 from __future__ import annotations
 
@@ -15,7 +15,9 @@ import torch
 
 from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
                                                 CheckerboardResult)
+from compv_tpu_torch.calib.epipolar import EssentialConfig
 from compv_tpu_torch.calib.homography import HomographyConfig
+from compv_tpu_torch.calib.pnp import PnpConfig
 from compv_tpu_torch.core.types import Keypoints, Lines
 from compv_tpu_torch.features.canny import CannyConfig
 from compv_tpu_torch.features.ccl import CclConfig, CclResult
@@ -23,16 +25,23 @@ from compv_tpu_torch.features.fast import FastConfig
 from compv_tpu_torch.features.hough import HoughKhtConfig, HoughShtConfig
 from compv_tpu_torch.features.mser import MserConfig, MserResult
 from compv_tpu_torch.features.orb import OrbConfig
+from compv_tpu_torch.slam.ba import BAConfig, BAProblem
+from compv_tpu_torch.slam.ba_schur import SchurConfig
 from compv_tpu_torch.slam.frontend import FrontendConfig
+from compv_tpu_torch.slam.sfm import STATE_DTYPES, SfmConfig
 
 __all__ = ["config_from_reference", "keypoints_from_numpy",
-           "keypoints_to_numpy", "result_from_numpy", "result_to_numpy"]
+           "keypoints_to_numpy", "result_from_numpy", "result_to_numpy",
+           "ba_problem_from_numpy", "ba_problem_to_numpy",
+           "sfm_state_from_numpy"]
 
 _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      HomographyConfig, FastConfig,
                                      CclConfig, MserConfig, CannyConfig,
                                      HoughShtConfig, HoughKhtConfig,
-                                     CheckerboardConfig)}
+                                     CheckerboardConfig, EssentialConfig,
+                                     PnpConfig, BAConfig, SchurConfig,
+                                     SfmConfig)}
 
 _DTYPES = {"level": torch.int32, "valid": torch.bool}
 
@@ -49,8 +58,9 @@ _RESULT_DTYPES = {
 def config_from_reference(cfg):
     """The port's counterpart of a ``compv_tpu`` config (FrontendConfig,
     OrbConfig, HomographyConfig, FastConfig, CclConfig, MserConfig,
-    CannyConfig, HoughShtConfig, HoughKhtConfig or CheckerboardConfig),
-    built field by field; nested configs are converted too."""
+    CannyConfig, HoughShtConfig, HoughKhtConfig, CheckerboardConfig,
+    EssentialConfig, PnpConfig, BAConfig, SchurConfig or SfmConfig), built
+    field by field; nested configs are converted too."""
     cls = _CONFIGS.get(type(cfg).__name__)
     if cls is None or not dataclasses.is_dataclass(cfg):
         raise TypeError(f"no port counterpart for {type(cfg).__name__}")
@@ -108,3 +118,36 @@ def result_to_numpy(res) -> dict:
     return {name: (result_to_numpy(v) if isinstance(v, tuple)
                    else v.detach().cpu().numpy())
             for name, v in zip(res._fields, res)}
+
+
+_BA_DTYPES = {"cameras": torch.float32, "landmarks": torch.float32,
+              "intrinsics": torch.float32, "cam_idx": torch.int32,
+              "lm_idx": torch.int32, "uv": torch.float32,
+              "valid": torch.bool}
+
+
+def ba_problem_from_numpy(prob, device=None) -> BAProblem:
+    """A port ``BAProblem`` from anything with its fields as attributes
+    (the ``compv_tpu`` BAProblem, or a dict of arrays), on ``device``."""
+    get = prob.__getitem__ if isinstance(prob, dict) else (
+        lambda k: getattr(prob, k))
+    return BAProblem(*[torch.as_tensor(np.array(get(name)),
+                                       dtype=_BA_DTYPES[name], device=device)
+                       for name in BAProblem._fields])
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict[str, np.ndarray]:
+    """{field: numpy array} of a port ``BAProblem``."""
+    return {name: getattr(prob, name).detach().cpu().numpy()
+            for name in BAProblem._fields}
+
+
+def sfm_state_from_numpy(state: dict, device=None) -> dict:
+    """The port's SfM state (what ``slam.sfm.resume_sfm`` takes) from the
+    numpy dict that ``compv_tpu.io.serialize.load_checkpoint`` returns for
+    a checkpoint of ``compv_tpu.slam.sfm.run_sfm``: cams, landmarks,
+    lm_valid, ob_ci, ob_li, ob_uv, ob_ok, k, n_tracks and n_obs, as tensors
+    of the port's dtypes."""
+    return {name: torch.as_tensor(np.array(state[name]), dtype=dtype,
+                                  device=device)
+            for name, dtype in STATE_DTYPES.items()}

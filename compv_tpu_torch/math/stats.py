@@ -15,17 +15,18 @@ def hartley_normalize(pts_xy: torch.Tensor, mask: torch.Tensor):
     """Translate the centroid to the origin and scale so the mean distance
     is sqrt(2).
 
-    pts_xy (N, 2), mask (N,) -> (normalized (N,2), T (3,3) with
-    x_norm_h = T @ x_h)."""
-    m = mask.to(pts_xy.dtype)[:, None]
-    n = m.sum().clamp_min(1.0)
-    centroid = (pts_xy * m).sum(dim=0) / n
-    centered = (pts_xy - centroid) * m
-    dist = (centered ** 2).sum(dim=1).sqrt()
-    mean_dist = dist.sum() / n
+    pts_xy (..., N, 2), mask (..., N) -> (normalized (..., N, 2), T
+    (..., 3, 3) with x_norm_h = T @ x_h); leading dimensions are a batch of
+    point sets."""
+    m = mask.to(pts_xy.dtype)[..., None]
+    n = m.sum(dim=(-2, -1)).clamp_min(1.0)
+    centroid = (pts_xy * m).sum(dim=-2) / n[..., None]
+    centered = (pts_xy - centroid[..., None, :]) * m
+    dist = (centered ** 2).sum(dim=-1).sqrt()
+    mean_dist = dist.sum(dim=-1) / n
     s = _SQRT2 / mean_dist.clamp_min(1e-12)
     zero, one = torch.zeros_like(s), torch.ones_like(s)
-    t = torch.stack([torch.stack([s, zero, -s * centroid[0]]),
-                     torch.stack([zero, s, -s * centroid[1]]),
-                     torch.stack([zero, zero, one])])
-    return centered * s, t
+    t = torch.stack([torch.stack([s, zero, -s * centroid[..., 0]], -1),
+                     torch.stack([zero, s, -s * centroid[..., 1]], -1),
+                     torch.stack([zero, zero, one], -1)], -2)
+    return centered * s[..., None, None], t

@@ -23,7 +23,10 @@ prefix sum over equal labels) whenever its buffer fills; a run head first
 tries a small hash table in shared memory, so that equal labels mostly meet
 before the sort. Its shared memory is the buffer, the list and the table,
 so any ``W`` and ``strip_rows`` are taken; a map of per-pixel distinct
-labels is exact and only slower.
+labels is exact and only slower. Where the buffer and the list do not fit
+in a block's shared memory (``min(rounds, strip_rows * W)`` above 11,519 on
+an H100), the kernel's second form keeps them in a scratch tensor of
+device memory, a slice a strip, so any ``rounds`` is taken too.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
 use) or the call raises; CPU tensors go to the twin.
@@ -51,6 +54,9 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.compv_strip_label_counts.argtypes = [p, i, i, i, i, i, i, i, p,
                                                  p, p, p]
         lib.compv_strip_label_counts.restype = i
+        lib.compv_strip_label_counts_global.argtypes = [p, i, i, i, i, i, i,
+                                                        i, p, p, p, p, p]
+        lib.compv_strip_label_counts_global.restype = i
         lib.compv_strip_step.argtypes = []
         lib.compv_strip_step.restype = i
         lib.compv_strip_slots.argtypes = []
@@ -115,10 +121,10 @@ def strip_label_counts(labels: torch.Tensor, rounds: int = 256,
     """K5: (H, W) i32 labels (-1 = background) -> (records (S, 2, rounds)
     i32, used (S,) i32, truncated (S,) i32), S = ceil(H / strip_rows).
 
-    On a CUDA tensor any ``W`` and ``strip_rows`` are taken. The list of
-    the kernel lives in shared memory, so ``min(rounds, strip_rows * W)``
-    may be at most 11,519 where a block may opt into 227 KB (an H100); the
-    call raises ``ValueError`` above that."""
+    On a CUDA tensor any ``W``, ``strip_rows`` and ``rounds`` are taken:
+    where the plan's buffer and list do not fit in a block's shared memory,
+    they go to a scratch tensor of ``S * (buffer keys + cap + 1)`` pairs of
+    8 bytes."""
     _check(labels, rounds, strip_rows)
     if labels.device.type == "cpu":
         return strip_label_counts_ref(labels, rounds, strip_rows)
@@ -137,16 +143,19 @@ def strip_label_counts(labels: torch.Tensor, rounds: int = 256,
     cap, buf_keys, smem = kernel_plan(rounds, strip_rows, w,
                                       lib.compv_strip_step(),
                                       lib.compv_strip_slots())
-    if smem + _STATIC_SMEM > optin:
-        raise ValueError(f"a list of min(rounds, strip_rows * W) = {cap} "
-                         f"labels needs {smem} B of shared memory; the card "
-                         f"allows {optin} B per block")
     labels = labels.contiguous()
-    with torch.cuda.device(dev):
-        rc = lib.compv_strip_label_counts(
-            labels.data_ptr(), h, w, strip_rows, n_strips, rounds, cap,
+    args = (labels.data_ptr(), h, w, strip_rows, n_strips, rounds, cap,
             buf_keys, records.data_ptr(), used.data_ptr(),
-            truncated.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            truncated.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if smem + _STATIC_SMEM <= optin:
+            rc = lib.compv_strip_label_counts(*args, stream)
+        else:
+            scratch = torch.empty((n_strips * (buf_keys + cap + 1),),
+                                  dtype=torch.int64, device=dev)
+            rc = lib.compv_strip_label_counts_global(
+                *args, scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"compv_strip_label_counts launch failed: "
                            f"cudaError {rc}")

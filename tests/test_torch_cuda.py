@@ -670,14 +670,36 @@ def test_strip_counts_kernel_past_the_first_kernels_limits(dev, case):
 
 
 def test_strip_counts_kernel_states_its_rounds_limit(dev):
-    """The list lives in shared memory: min(rounds, strip pixels) past what
-    fits raises, with the number."""
+    """A list past a block's shared memory no longer raises: the kernel
+    keeps it in device memory, and the result is the twin's."""
     lbl = torch.zeros((8, 8192), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        label_stats.strip_label_counts(lbl, 40000, 8)
+    got = label_stats.strip_label_counts(lbl, 40000, 8)
+    assert got[1].tolist() == [1] and got[0][0, :, 0].tolist() == [0, 65536]
     small = torch.zeros((8, 16), dtype=torch.int32, device=dev)
     got = label_stats.strip_label_counts(small, 40000, 8)    # 128 pixels
     assert got[1].tolist() == [1] and got[0][0, :, 0].tolist() == [0, 128]
+
+
+@pytest.mark.parametrize("rounds", [11520, 65536])
+@pytest.mark.parametrize("case", ["per_pixel", "random_binary"])
+def test_strip_counts_kernel_past_shared_memory(dev, rounds, case):
+    """min(rounds, strip pixels) above 11,519: the list in device memory,
+    exact against the twin (per-pixel labels fill it; a random binary's
+    components truncate at neither size)."""
+    rs = np.random.default_rng(31)
+    if case == "per_pixel":
+        lbl = torch.arange(24 * 8192, dtype=torch.int32).reshape(24, 8192)
+        lbl = lbl.flip(1).contiguous()
+    else:
+        lbl = label_components(torch.from_numpy(
+            (rs.random((40, 8192)) < 0.45).astype(np.uint8)), 8, 1000)
+    want = label_stats.strip_label_counts_ref(lbl, rounds, 8)
+    before = label_stats.strip_label_counts.launches
+    got = label_stats.strip_label_counts(lbl.to(dev), rounds, 8)
+    torch.cuda.synchronize()
+    assert label_stats.strip_label_counts.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_hough_kernels_count_their_launches(dev):
@@ -736,3 +758,74 @@ def test_chessboard_cuda_matches_cpu(dev, angle):
                                 CheckerboardConfig())
     assert bool(a.valid) and bool(b.valid)
     assert float((a.corners - b.corners.cpu()).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------- SfM slice
+
+from compv_tpu_torch.interop import ba_problem_from_numpy  # noqa: E402
+from compv_tpu_torch.slam import ba as slam_ba  # noqa: E402
+from compv_tpu_torch.slam import ba_schur as slam_schur  # noqa: E402
+from compv_tpu_torch.slam import sfm as slam_sfm  # noqa: E402
+
+
+def _ba_arrays(f=12, l=600, o=4000, seed=5):
+    rs = np.random.default_rng(seed)
+    cams = np.concatenate([rs.normal(0, 0.05, (f, 3)),
+                           rs.normal(0, 0.4, (f, 3))], 1).astype(np.float32)
+    lms = (rs.uniform(-2, 2, (l, 3)) + [0, 0, 7.0]).astype(np.float32)
+    ci = rs.integers(0, f, o).astype(np.int32)
+    li = rs.integers(0, l, o).astype(np.int32)
+    prob = ba_problem_from_numpy({
+        "cameras": cams, "landmarks": lms,
+        "intrinsics": np.array([400.0, 400.0, 320.0, 240.0], np.float32),
+        "cam_idx": ci, "lm_idx": li, "uv": np.zeros((o, 2), np.float32),
+        "valid": np.ones(o, bool)})
+    uv = slam_ba.project_points(prob.cameras, prob.landmarks,
+                                prob.intrinsics, prob.cam_idx, prob.lm_idx)
+    uv = uv + torch.from_numpy(rs.normal(0, 0.5, (o, 2)).astype(np.float32))
+    cams_n = cams + rs.normal(0, 0.005, cams.shape).astype(np.float32)
+    cams_n[:2] = cams[:2]
+    return prob._replace(cameras=torch.from_numpy(cams_n), uv=uv)
+
+
+@pytest.mark.parametrize("solver", ["cg", "schur"])
+def test_ba_solve_on_the_card_is_deterministic_and_matches_cpu(dev, solver):
+    """Two card runs bit-identical (no atomics in the sums); cost within
+    1e-3 relative of the CPU run, cameras within 1e-3 (two pinned)."""
+    prob = _ba_arrays()
+    mask = torch.arange(12) >= 2
+
+    def solve(p, m):
+        if solver == "schur":
+            return slam_schur.ba_solve_schur(
+                p, slam_schur.SchurConfig(iterations=5, robust_delta=3.0), m)
+        return slam_ba.ba_solve(p, slam_ba.BAConfig(
+            iterations=6, cg_iterations=25, robust_delta=3.0), m)
+
+    on_card = prob._replace(**{k: v.to(dev) for k, v in
+                               prob._asdict().items()})
+    a, ca = solve(on_card, mask.to(dev))
+    b, cb = solve(on_card, mask.to(dev))
+    h, ch = solve(prob, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a.cameras, b.cameras) and torch.equal(ca, cb)
+    assert abs(float(ca) - float(ch)) <= 1e-3 * float(ch)
+    assert float((a.cameras.cpu() - h.cameras).abs().max()) <= 1e-3
+
+
+def test_sfm_6_frames_on_the_card_matches_cpu(dev):
+    """render + run_sfm at 6 frames 120x160: frames and tracks equal to the
+    CPU run, ATE within max(1.5x the CPU's, 3% of the span), K1 launched
+    4 levels x 6 frames."""
+    frames, gt, k = slam_sfm.render_orbit_sequence(6, 120, 160, device=dev)
+    cpu_frames = slam_sfm.render_orbit_sequence(6, 120, 160, device="cpu")[0]
+    assert np.array_equal(frames, cpu_frames)
+    cfg = slam_sfm.SfmConfig(max_obs=4096, max_landmarks=1024)
+    before = fast_kernel.launches
+    ate, res = slam_sfm.sfm_ate(frames, gt, k, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert fast_kernel.launches - before == 24
+    ate_cpu, res_cpu = slam_sfm.sfm_ate(frames, gt, k, cfg, device="cpu")
+    span = float(np.linalg.norm(gt[-1] - gt[0]))
+    assert res.num_tracks == res_cpu.num_tracks
+    assert ate <= max(1.5 * ate_cpu, 0.03 * span)
