@@ -107,7 +107,30 @@ Phases, each printing its lines before the last:
  14. times of the SfM slice at sfm_long: run_sfm per frame split by stage
      (CUDA events around each stage, median of 3 runs), one ba_solve and
      one ba_solve_schur at the final BA's shape, and device busy, idle
-     share and launches per frame under torch.profiler.
+     share and launches per frame under torch.profiler;
+ 15. slice 3 at full width, with K1 and K4 launches counted from 0 on each
+     path: calibration from images (8 views of 720x1280 of the 6x8 board of
+     80-px squares warped through K = f 1000 at known poses ->
+     find_chessboard_corners, K4 once a view -> calibrate_camera, Zhang and
+     40 LM steps -> undistort_image, undistort_points), held to the
+     reference tests' bars and to the port on the CPU on the same corners;
+     track_planar_sequence on 16 frames of the 720x1282 scene, each turned
+     0.3 degrees and shifted (4, 2) px more than the last (K1 on 4 levels of
+     every frame), the chained H against the truth, inlier counts on the
+     card and the CPU, decompose_homography and KeyframeStore;
+     optimize_pose_graph on a graph of sphere2500's size made from a seed
+     (2,500 poses, 4,949 edges), its cost ratio against the reference's
+     (POSEGRAPH_REF_RATIO), the CPU's cost, and a second card run
+     (identical); fit_line / fit_parabola through ransac and the distances
+     on 65,536 points with 30 % outliers against the CPU; the slice-1/2
+     leftovers (Q0.16 blur, nearest / bicubic scaling, both rotations, 2-D
+     and wide convolutions, the pyramid, popcount, threefry.normal, masked
+     statistics) on the card against the CPU;
+ 16. times of slice 3 (CUDA events) with device busy, idle share and
+     launches by torch.profiler: find_chessboard_corners per view,
+     calibrate_camera, the 8-view calibration path (K4 kernels counted in
+     the trace), undistort_image at 720x1280, track_planar_sequence per
+     frame (K1 kernels counted in the trace) and optimize_pose_graph.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -231,19 +254,27 @@ def device_events(fn, calls: int = 1, attempts: int = 3, warm: bool = True):
     return events, wall_ms
 
 
-def device_profile(fn, ms: float, calls: int = 3) -> dict:
+def device_profile(fn, ms: float, calls: int = 3,
+                   kernel_names: dict | None = None) -> dict:
     """Per call of ``fn``, over ``calls`` profiled calls: device-busy ms,
-    device operations, the wall ms under the profiler, and the idle share
-    1 - busy / ms against ``ms``, the call's time without the profiler.
-    Where the profiler recorded nothing, these are not measured (null)."""
+    device operations and kernel launches among them, the wall ms under the
+    profiler, the idle share 1 - busy / ms against ``ms``, the call's time
+    without the profiler, and for each entry of ``kernel_names`` ({key:
+    substring}) the launches of the kernels whose name holds it. Where the
+    profiler recorded nothing, these are not measured (null)."""
     events, wall_ms = device_events(fn, calls)
     if not events:
         PROFILER["fallbacks"] += 1
-        return {"busy_ms": None, "device_ops": None,
-                "profiled_wall_ms": wall_ms, "idle_share": None}
+        return {"busy_ms": None, "device_ops": None, "kernel_launches": None,
+                "profiled_wall_ms": wall_ms, "idle_share": None,
+                **{key: None for key in kernel_names or {}}}
+    kernels = [e for e in events if not e[0].startswith(("Memcpy", "Memset"))]
     busy_ms = sum(us for _, us in events) / 1e3 / calls
     return {"busy_ms": busy_ms, "device_ops": len(events) / calls,
-            "profiled_wall_ms": wall_ms, "idle_share": 1 - busy_ms / ms}
+            "kernel_launches": len(kernels) / calls,
+            "profiled_wall_ms": wall_ms, "idle_share": 1 - busy_ms / ms,
+            **{key: sum(1 for name, _ in kernels if sub in name) / calls
+               for key, sub in (kernel_names or {}).items()}}
 
 
 def device_ms(fn, calls: int = 10) -> float:
@@ -2077,6 +2108,540 @@ def phase14_sfm_times(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 3: calibration from images (find_chessboard_corners through K4 on
+# every view, Zhang + LM, undistortion), planar tracking (ORB through K1 on
+# every level of every frame), the pose graph, RANSAC and fits, and the
+# leftovers of slices 1-2
+
+
+# K of the calibration views: 720 x 1280 at f = 1000
+CAL_K = np.array([[1000.0, 0.0, 640.0], [0.0, 1000.0, 360.0],
+                  [0.0, 0.0, 1.0]])
+# final / initial cost of the reference (compv_tpu, JAX 0.9.0 on a CPU) on
+# sphere_graph() with PoseGraphConfig(): scripts/posegraph_sphere_reference.py
+POSEGRAPH_REF_RATIO = 0.017327983514009965
+
+
+def calibration_views(dev, n_views: int = 8):
+    """``n_views`` views of 720x1280 of the 6x8 board of 80-px squares
+    (phase 10's render, upright), each warped by the homography that takes
+    the render's corners to the board seen through CAL_K at a known pose
+    (as tests/test_checkerboard.py:97-120 builds 4 views at 500x660): a
+    tilt of 0.3 rad about one of 8 axes in the image plane, a roll of up to
+    0.175 rad, 2600 units away (squares of ~31 px), the grid's centre seen
+    at (400, 240). The reference's corner finder (ported unchanged) finds
+    from 1 to 7 of such 8 boards at this size, by where they sit and how
+    they tilt, and calls some boards 30-60 px off valid
+    (scripts/corner_views_probe.py); at this geometry it finds 7, each
+    within 2 px. Returns (object points (48, 3), views (P, 720, 1280) u8,
+    true corners (P, 48, 2)), all on ``dev``."""
+    from compv_tpu_torch.calib.camera import checkerboard_object_points
+    from compv_tpu_torch.calib.homography import compute_homography_dlt
+    from compv_tpu_torch.calib.utils import project_points_dist
+    from compv_tpu_torch.image.remap import warp_perspective
+
+    rows, cols, square = 6, 8, 80.0
+    board, corners = render_board(square=80, margin=80)
+    board_t = torch.from_numpy(board).to(dev)
+    corners_t = torch.as_tensor(corners, dtype=torch.float32, device=dev)
+    k = torch.as_tensor(CAL_K, dtype=torch.float32, device=dev)
+    obj = checkerboard_object_points(rows, cols, square, device=dev)
+    no_dist = torch.zeros(4, device=dev)
+    z = 2600.0
+    # the grid's centre, (280, 200) in board units, seen at (400, 240)
+    tvec = torch.tensor([(400 - CAL_K[0, 2]) * z / CAL_K[0, 0] - 280.0,
+                         (240 - CAL_K[1, 2]) * z / CAL_K[1, 1] - 200.0, z],
+                        dtype=torch.float32, device=dev)
+    views, truth = [], []
+    for i in range(n_views):
+        a = 2 * np.pi * i / n_views
+        rvec = torch.tensor([0.3 * np.cos(a), 0.3 * np.sin(a),
+                             0.05 * (i - 3.5)], dtype=torch.float32,
+                            device=dev)
+        proj = project_points_dist(obj, k, no_dist, rvec, tvec)
+        h = compute_homography_dlt(corners_t, proj)
+        views.append(warp_perspective(board_t, torch.linalg.inv(h), 720, 1280,
+                                      fill=128.0))
+        truth.append(proj)
+    return obj, torch.stack(views), torch.stack(truth)
+
+
+def planar_truth(t: int, h: int, w: int) -> np.ndarray:
+    """Frame 0 -> frame t: a turn of 0.3 degrees x t about the image
+    centre, then a shift of (4t, 2t) px."""
+    th = np.deg2rad(0.3 * t)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    turn = np.array([[np.cos(th), -np.sin(th), 0.0],
+                     [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    to_c = np.array([[1.0, 0.0, cx], [0.0, 1.0, cy], [0.0, 0.0, 1.0]])
+    from_c = np.array([[1.0, 0.0, -cx], [0.0, 1.0, -cy], [0.0, 0.0, 1.0]])
+    shift = np.array([[1.0, 0.0, 4.0 * t], [0.0, 1.0, 2.0 * t],
+                      [0.0, 0.0, 1.0]])
+    return shift @ to_c @ turn @ from_c
+
+
+def planar_frames(dev, scene: np.ndarray, n: int = 16):
+    """The 720x1282 bench scene warped by planar_truth(t), t < n, fill 128,
+    on ``dev``."""
+    from compv_tpu_torch.image.remap import warp_perspective
+
+    img = torch.from_numpy(scene).to(dev)
+    h, w = scene.shape
+    return [warp_perspective(img, torch.as_tensor(
+        np.linalg.inv(planar_truth(t, h, w)), dtype=torch.float32,
+        device=dev), h, w, fill=128.0) for t in range(n)]
+
+
+def sphere_graph(rings: int = 50, per_ring: int = 50, seed: int = 0,
+                 rot_sigma: float = 0.02, t_sigma: float = 0.05):
+    """A pose graph of the size of g2o's sphere2500 (2,500 poses, 4,949
+    edges), made from a seed: ``rings`` rings of ``per_ring`` poses on the
+    unit sphere along one spiral, each pose turned by its azimuth and polar
+    angle; ``rings * per_ring - 1`` odometry edges along the spiral and
+    ``(rings - 1) * per_ring`` edges between neighbouring rings, each
+    measurement the true relative pose with its rotation turned by a normal
+    axis-angle of ``rot_sigma`` rad and ``t_sigma`` (units of the radius)
+    added to its translation, weight 1. The poses start from the odometry
+    chained from the true first pose. Returns (the graph as a dict of numpy
+    arrays, the true poses (N, 6))."""
+    from scipy.spatial.transform import Rotation
+
+    rs = np.random.default_rng(seed)
+    n = rings * per_ring
+    rot = np.zeros((n, 3, 3))
+    pos = np.zeros((n, 3))
+    for r in range(rings):
+        th = np.pi * (r + 0.5) / rings
+        for i in range(per_ring):
+            ph = 2 * np.pi * (i + r / rings) / per_ring
+            k = r * per_ring + i
+            pos[k] = [np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                      np.cos(th)]
+            rot[k] = Rotation.from_euler("zy", [ph, th]).as_matrix()
+    pairs = ([(k, k + 1) for k in range(n - 1)]
+             + [(r * per_ring + i, (r + 1) * per_ring + i)
+                for r in range(rings - 1) for i in range(per_ring)])
+    meas = np.zeros((len(pairs), 6))
+    for e, (i, j) in enumerate(pairs):
+        r_rel = rot[i].T @ rot[j] @ Rotation.from_rotvec(
+            rs.normal(0, rot_sigma, 3)).as_matrix()
+        meas[e, :3] = Rotation.from_matrix(r_rel).as_rotvec()
+        meas[e, 3:] = rot[i].T @ (pos[j] - pos[i]) + rs.normal(0, t_sigma, 3)
+    init_r, init_t = np.zeros((n, 3, 3)), np.zeros((n, 3))
+    init_r[0], init_t[0] = rot[0], pos[0]
+    for k in range(n - 1):
+        init_t[k + 1] = init_r[k] @ meas[k, 3:] + init_t[k]
+        init_r[k + 1] = init_r[k] @ Rotation.from_rotvec(meas[k, :3]
+                                                         ).as_matrix()
+    e = np.asarray(pairs)
+
+    def poses(r, t):
+        return np.concatenate([Rotation.from_matrix(r).as_rotvec(), t],
+                              1).astype(np.float32)
+
+    graph = {"poses": poses(init_r, init_t),
+             "edge_i": e[:, 0].astype(np.int32),
+             "edge_j": e[:, 1].astype(np.int32),
+             "edge_meas": meas.astype(np.float32),
+             "edge_weight": np.ones(len(pairs), np.float32),
+             "edge_valid": np.ones(len(pairs), bool)}
+    return graph, poses(rot, pos)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b| (b the CPU's)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    a = a.detach().cpu().contiguous().view(torch.int32).long()
+    b = b.detach().cpu().contiguous().view(torch.int32).long()
+    return int((a - b).abs().max())
+
+
+def phase15_slice3(dev, scene: np.ndarray) -> dict:
+    from compv_tpu_torch.calib.camera import (CalibrationConfig,
+                                              calibrate_camera)
+    from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
+                                                    find_chessboard_corners)
+    from compv_tpu_torch.calib.utils import undistort_image, undistort_points
+    from compv_tpu_torch.features.orb import orb_detect_describe
+    from compv_tpu_torch.interop import pose_graph_from_numpy
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.slam.pipeline import (KeyframeStore,
+                                               PlanarTrackerConfig,
+                                               decompose_homography,
+                                               track_planar_sequence)
+    from compv_tpu_torch.slam.posegraph import (PoseGraphConfig,
+                                                graph_residuals,
+                                                optimize_pose_graph)
+
+    out = {}
+    # A: calibration from images, 8 views of 720x1280
+    obj, views, truth = calibration_views(dev)
+    torch.cuda.synchronize()
+    fk.launches = 0
+    hk.sht_accumulate.launches = 0
+    found = [find_chessboard_corners(v, CheckerboardConfig()) for v in views]
+    ok = [bool(f.valid) for f in found]
+    img_pts = torch.stack([f.corners for f, v in zip(found, ok) if v])
+    cres = calibrate_camera(obj, img_pts, CalibrationConfig())
+    und = undistort_image(views[0], cres.k, cres.dist)
+    und_pts = undistort_points(img_pts[0], cres.k, cres.dist)
+    torch.cuda.synchronize()
+    k4_cal, k1_cal = hk.sht_accumulate.launches, fk.launches
+    check(k4_cal == len(views) and k1_cal == 0,
+          f"calibration: K4 launches {k4_cal} != {len(views)} views, "
+          f"K1 {k1_cal} != 0")
+    check(sum(ok) >= 6, f"{sum(ok)} of {len(views)} boards detected")
+    k = cres.k.cpu().double().numpy()
+    rms, rms0 = float(cres.rms), float(cres.rms_initial)
+    f_err = max(abs(k[0, 0] - CAL_K[0, 0]), abs(k[1, 1] - CAL_K[1, 1])
+                ) / CAL_K[0, 0]
+    check(f_err < 0.15 and rms < 5.0,
+          f"calibration: fx, fy {k[0, 0]}, {k[1, 1]}, RMS {rms}")
+    check(rms <= rms0 + 1e-6, f"RMS after LM {rms} > before {rms0}")
+    sel = torch.tensor(ok, device=dev)
+    corner_err = float((img_pts - truth[sel]).abs().max())
+    # a board called valid must be where it is: the reference's finder
+    # calls some tilted boards valid 30-55 px off (ROADMAP Queue 3)
+    check(corner_err <= 2.0,
+          f"a detected board's corners are {corner_err} px from the truth")
+    with hough_twins():
+        twin = find_chessboard_corners(views[0], CheckerboardConfig())
+    check(torch.equal(twin.corners, found[0].corners),
+          "corners: kernel vs twin path")
+    cpu = calibrate_camera(obj.cpu(), img_pts.cpu(), CalibrationConfig())
+    k_rel = rel_err(cres.k, cpu.k)
+    rms_rel = abs(rms - float(cpu.rms)) / float(cpu.rms)
+    check(k_rel <= 1e-3 and rms_rel <= 1e-3,
+          f"calibration card vs CPU: K {k_rel}, RMS {rms_rel} relative")
+    und_cpu = undistort_image(views[0].cpu(), cres.k.cpu(), cres.dist.cpu())
+    und_diff = int((und.cpu().int() - und_cpu.int()).abs().max())
+    pts_diff = float((und_pts.cpu() - undistort_points(
+        img_pts[0].cpu(), cres.k.cpu(), cres.dist.cpu())).abs().max())
+    check(und_diff <= 1 and pts_diff <= 1e-2,
+          f"undistortion card vs CPU: {und_diff} levels, {pts_diff} px")
+    out["calibration_8x720p"] = {
+        "views_detected": sum(ok), "k4_launches": k4_cal,
+        "k1_launches": k1_cal, "fx": k[0, 0], "fy": k[1, 1],
+        "cx": k[0, 2], "cy": k[1, 2], "dist": cres.dist.tolist(),
+        "rms_initial_px": rms0, "rms_px": rms,
+        "corner_err_px": corner_err, "k_rel_vs_cpu": k_rel,
+        "rms_rel_vs_cpu": rms_rel, "undistort_image_max_diff_vs_cpu": und_diff,
+        "undistort_points_max_diff_px_vs_cpu": pts_diff}
+
+    # B: planar tracking, 16 frames of the 720x1282 scene
+    frames = planar_frames(dev, scene, 16)
+    h, w = scene.shape
+    cfg = PlanarTrackerConfig()
+    torch.cuda.synchronize()
+    fk.launches = 0
+    hk.sht_accumulate.launches = 0
+    track = track_planar_sequence(frames, cfg)
+    torch.cuda.synchronize()
+    k1_track, k4_track = fk.launches, hk.sht_accumulate.launches
+    check(k1_track == cfg.orb.levels * len(frames) and k4_track == 0,
+          f"track: K1 launches {k1_track} != {cfg.orb.levels} levels x "
+          f"{len(frames)} frames, K4 {k4_track}")
+    check(all(track.tracked), f"frames lost: {track.tracked}")
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                        [w - 1, h - 1, 1]], np.float64).T
+
+    def corner_px(hm, t):
+        a = hm @ corners
+        b = planar_truth(t, h, w) @ corners
+        return float(np.abs(a[:2] / a[2] - b[:2] / b[2]).max())
+
+    errs = [corner_px(hm, t) for t, hm in enumerate(track.h_to_first)]
+    check(max(errs) <= 2.0, f"chained H off by {max(errs)} px")
+    track_cpu = track_planar_sequence([f.cpu() for f in frames], cfg)
+    errs_cpu = [corner_px(hm, t) for t, hm in enumerate(track_cpu.h_to_first)]
+    k_t = torch.as_tensor(CAL_K, dtype=torch.float32, device=dev)
+    h_last = torch.as_tensor(track.h_to_first[-1], dtype=torch.float32,
+                             device=dev)
+    dec = decompose_homography(h_last, k_t)
+    dec_cpu = decompose_homography(h_last.cpu(), k_t.cpu())
+    dec_err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(dec, dec_cpu))
+    check(dec_err <= 1e-4, f"decompose_homography card vs CPU {dec_err}")
+    store = KeyframeStore(capacity=2)
+    for t in (0, len(frames) - 1):
+        store.add(t, orb_detect_describe(frames[t], cfg.orb), np.eye(4))
+    desc, valid = store.stacked_descriptors()
+    check(desc.shape == (2, cfg.orb.max_features, 256),
+          "keyframe store shape")
+    out["planar_track_720p"] = {
+        "frames": len(frames), "k1_launches": k1_track,
+        "k4_launches": k4_track, "tracked": all(track.tracked),
+        "inliers_card": track.num_inliers, "inliers_cpu": track_cpu.num_inliers,
+        "tracked_cpu": all(track_cpu.tracked),
+        "corner_err_px_max": max(errs), "corner_err_px_max_cpu": max(errs_cpu),
+        "corner_err_px_last": errs[-1],
+        "decompose_rvec": dec[0].tolist(), "decompose_max_diff_vs_cpu": dec_err,
+        "keyframes": len(store)}
+
+    # C: the pose graph at sphere2500's size
+    g_np, true = sphere_graph()
+    graph = pose_graph_from_numpy(g_np, dev)
+    pcfg = PoseGraphConfig()
+    cost_init = float((graph_residuals(graph.poses, graph) ** 2).sum())
+    cost_true = float((graph_residuals(torch.from_numpy(true).to(dev), graph)
+                       ** 2).sum())
+    g1, c1 = optimize_pose_graph(graph, pcfg)
+    g2, c2 = optimize_pose_graph(graph, pcfg)
+    torch.cuda.synchronize()
+    check(torch.equal(g1.poses, g2.poses) and torch.equal(c1, c2),
+          "pose graph: a second card run differs")
+    gc, cc = optimize_pose_graph(pose_graph_from_numpy(g_np), pcfg)
+    ratio = float(c1) / cost_init
+    check(ratio <= 1.5 * POSEGRAPH_REF_RATIO,
+          f"pose graph cost ratio {ratio} > 1.5 x the reference's "
+          f"{POSEGRAPH_REF_RATIO}")
+    pg_rel = abs(float(c1) - float(cc)) / float(cc)
+    check(pg_rel <= 1e-3, f"pose graph card vs CPU cost {pg_rel} relative")
+    t_err = float((g1.poses[:, 3:].cpu() - torch.from_numpy(true[:, 3:]))
+                  .abs().mean())
+    out["posegraph_sphere2500"] = {
+        "poses": int(graph.poses.shape[0]),
+        "edges": int(graph.edge_i.shape[0]), "cost_initial": cost_init,
+        "cost_final": float(c1), "cost_final_cpu": float(cc),
+        "cost_at_truth": cost_true, "cost_ratio": ratio,
+        "reference_cost_ratio": POSEGRAPH_REF_RATIO,
+        "cost_rel_vs_cpu": pg_rel, "second_run": "identical",
+        "translation_err_initial": float(np.abs(g_np["poses"][:, 3:]
+                                                - true[:, 3:]).mean()),
+        "translation_err_final": t_err}
+
+    out["ransac_fits_65536"] = ransac_and_fits(dev)
+    out["leftovers"] = leftovers_card_vs_cpu(dev, scene)
+    emit({"phase": 15, **out,
+          "bars": "calibration: >= 6 of 8 boards, fx and fy within 15 %, "
+                  "RMS < 5 px and not above the closed form's, K and RMS "
+                  "within 1e-3 of the CPU on the same corners; tracking: "
+                  "every frame tracked, image corners within 2 px of the "
+                  "truth; pose graph: final / initial cost <= 1.5x the "
+                  "reference's, cost within 1e-3 of the CPU, two card runs "
+                  "identical; fits: the line's inliers equal the CPU's"})
+    return {"k4_per_calibration": k4_cal, "k1_per_track": k1_track,
+            "obj": obj, "views": views, "img_pts": img_pts, "cres": cres,
+            "frames": frames, "graph": graph}
+
+
+def ransac_and_fits(dev) -> dict:
+    """fit_line, fit_parabola (through the generic ransac) and the
+    distances on 65,536 points, 30 % of them outliers, card against
+    CPU."""
+    from compv_tpu_torch.math.distance import (dist_line, dist_parabola,
+                                               hamming, hamming_packed, l2,
+                                               squared_l2)
+    from compv_tpu_torch.math.fit import fit_line, fit_parabola
+
+    rs = np.random.default_rng(15)
+    n = 65536
+    out = rs.random(n) < 0.3
+    x = rs.uniform(0, 1000, n)
+    y = 0.7 * x + 3 + rs.normal(0, 0.3, n)
+    y[out] = rs.uniform(-300, 1000, int(out.sum()))
+    pts = torch.as_tensor(np.stack([x, y], 1), dtype=torch.float32)
+    line = fit_line(pts.to(dev), threshold=1.0)
+    line_cpu = fit_line(pts, threshold=1.0)
+    check(torch.equal(line.inliers.cpu(), line_cpu.inliers),
+          "fit_line: card inliers != CPU")
+    a, b, _ = line.abc.tolist()
+    check(abs(-a / b - 0.7) < 0.01, f"fit_line slope {-a / b}")
+    xp = rs.uniform(-10, 10, n)
+    yp = 0.3 * xp ** 2 - 2 * xp + 5 + rs.normal(0, 0.1, n)
+    yp[out] = rs.uniform(0, 60, int(out.sum()))
+    pp = torch.as_tensor(np.stack([xp, yp], 1), dtype=torch.float32)
+    par = fit_parabola(pp.to(dev), threshold=0.8)
+    par_cpu = fit_parabola(pp, threshold=0.8)
+    check(abs(float(par.abc[0]) - 0.3) < 0.01, f"parabola {par.abc.tolist()}")
+    # the card's lstsq is QR (gels) of the tall, full-rank inlier system
+    par_rel = rel_err(par.abc, par_cpu.abc)
+    check(par_rel <= 1e-3, f"fit_parabola card vs CPU {par_rel} relative")
+    d_line = dist_line(pts.to(dev), *line.abc.unbind())
+    d_par = rel_err(dist_parabola(pp.to(dev), *par.abc.unbind()),
+                    dist_parabola(pp, *par.abc.cpu().unbind()))
+    check(d_par <= 1e-5, f"dist_parabola card vs CPU {d_par}")
+    desc = torch.from_numpy(rs.integers(0, 256, (n, 32), dtype=np.uint8))
+    ham = hamming_packed(desc.to(dev), desc[0].to(dev))
+    check(torch.equal(ham.cpu(), hamming_packed(desc, desc[0])),
+          "hamming_packed card != CPU")
+    bits = torch.from_numpy(rs.integers(0, 2, (n, 256), dtype=np.uint8))
+    check(torch.equal(hamming(bits.to(dev), bits[0].to(dev)).cpu(),
+                      hamming(bits, bits[0])), "hamming card != CPU")
+    q = torch.from_numpy(rs.normal(0, 1, (4096, 64)).astype(np.float32))
+    sq_card, sq_cpu = squared_l2(q.to(dev), q[:512].to(dev)), squared_l2(
+        q, q[:512])
+    l2_rel = rel_err(sq_card, sq_cpu)
+    check(l2_rel <= 1e-5, f"squared_l2 card vs CPU {l2_rel}")
+    # |sqrt(a) - sqrt(b)| <= sqrt(|a - b|): the bound on the squares
+    # carries to l2, whose near-zero entries (each row against itself,
+    # where the expansion cancels) move most
+    l2_diff = float((l2(q.to(dev), q[:512].to(dev)).cpu()
+                     - l2(q, q[:512])).abs().max())
+    l2_bound = (1e-5 * float(sq_cpu.abs().max())) ** 0.5
+    check(l2_diff <= l2_bound, f"l2 card vs CPU {l2_diff} > {l2_bound}")
+    return {"points": n, "outliers": int(out.sum()),
+            "line_inliers": int(line.num_inliers),
+            "line_inliers_equal_cpu": True, "line_abc": line.abc.tolist(),
+            "parabola_inliers": int(par.num_inliers),
+            "parabola_inliers_cpu": int(par_cpu.num_inliers),
+            "parabola_inliers_equal_cpu": bool(torch.equal(
+                par.inliers.cpu(), par_cpu.inliers)),
+            "parabola_abc": par.abc.tolist(),
+            "parabola_abc_rel_vs_cpu": par_rel,
+            "dist_line_finite": bool(torch.isfinite(d_line).all()),
+            "dist_parabola_rel_vs_cpu": d_par, "hamming": "exact",
+            "squared_l2_rel_vs_cpu": l2_rel, "l2_max_diff_vs_cpu": l2_diff,
+            "l2_bound": l2_bound}
+
+
+def leftovers_card_vs_cpu(dev, scene: np.ndarray) -> dict:
+    """The slice-1/2 leftovers on the card against the CPU: exact where
+    the arithmetic is integer or the same f32 operations in the same order,
+    else within the stated bound."""
+    from compv_tpu_torch.image.pyramid import build_pyramid
+    from compv_tpu_torch.image.scale import (rotate_bilinear, rotate_fast,
+                                             scale_bicubic, scale_nearest)
+    from compv_tpu_torch.math.stats import masked_variance, mse_2d
+    from compv_tpu_torch.ops import threefry
+    from compv_tpu_torch.ops.bitops import bits_xor, popcount_bytes
+    from compv_tpu_torch.ops.conv import (convolve2d, convolve_separable,
+                                          gaussian_blur_q16, gaussian_kernel1d,
+                                          gaussian_kernel2d)
+
+    gray = torch.from_numpy(scene)
+    g = gray.to(dev)
+    res = {}
+
+    def exact(name, fn, *args):
+        a = fn(*[x.to(dev) if isinstance(x, torch.Tensor) else x
+                 for x in args])
+        b = fn(*args)
+        check(torch.equal(a.cpu(), b), f"{name}: card != CPU")
+        res[name] = "exact"
+
+    exact("gaussian_blur_q16", gaussian_blur_q16, gray)
+    exact("scale_nearest", scale_nearest, gray, 500, 901)
+    exact("scale_bicubic", scale_bicubic, gray, 500, 901)
+    exact("convolve2d_5x5", convolve2d, gray, gaussian_kernel2d(5, 1.5))
+    rb = (rotate_bilinear(g, 17.0).cpu().int()
+          - rotate_bilinear(gray, 17.0).int()).abs()
+    check(int(rb.max()) <= 1, f"rotate_bilinear card vs CPU {int(rb.max())}")
+    res["rotate_bilinear_pixels_off_by_1"] = int((rb > 0).sum())
+    rf = (rotate_fast(g, 17.0).cpu() - rotate_fast(gray, 17.0)).abs()
+    check(float(rf.max()) <= 1e-2, f"rotate_fast card vs CPU {rf.max()}")
+    res["rotate_fast_max_diff"] = float(rf.max())
+    res["rotate_fast_values_differing"] = int((rf > 0).sum())
+    wide = gaussian_kernel1d(41, 6.0)
+    c41 = rel_err(convolve_separable(g, wide, wide),
+                  convolve_separable(gray, wide, wide))
+    c9 = rel_err(convolve2d(g, gaussian_kernel2d(9, 2.0)),
+                 convolve2d(gray, gaussian_kernel2d(9, 2.0)))
+    check(c41 <= 1e-5 and c9 <= 1e-5,
+          f"library convolutions card vs CPU {c41}, {c9}")
+    res["convolve_separable_41_taps_rel"] = c41
+    res["convolve2d_9x9_rel"] = c9
+    pyr = build_pyramid(g, 4, 0.83, "bicubic")
+    pyr_cpu = build_pyramid(gray, 4, 0.83, "bicubic")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(pyr.images,
+                                                      pyr_cpu.images)),
+          "build_pyramid card != CPU")
+    res["build_pyramid_bicubic"] = "exact"
+    packed = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4096, 32), dtype=np.uint8))
+    exact("popcount_bytes", popcount_bytes, packed)
+    exact("bits_xor", bits_xor, packed, packed.flip(0))
+    key = threefry.prng_key(7)
+    nu = ulps(threefry.normal(key, (512, 512), dev),
+              threefry.normal(key, (512, 512)))
+    check(nu <= 4, f"threefry.normal card vs CPU {nu} ulp")
+    res["threefry_normal_max_ulp_vs_cpu"] = nu
+    xs = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 3, (256, 256)).astype(np.float32))
+    m = xs > 0
+    res["masked_variance_rel"] = rel_err(masked_variance(xs.to(dev),
+                                                         m.to(dev), 0),
+                                         masked_variance(xs, m, 0))
+    res["mse_2d_rel"] = rel_err(mse_2d(xs[:, :2].to(dev), xs[:, 2:4].to(dev),
+                                       m[:, 0].to(dev)),
+                                mse_2d(xs[:, :2], xs[:, 2:4], m[:, 0]))
+    check(res["masked_variance_rel"] <= 1e-5 and res["mse_2d_rel"] <= 1e-5,
+          "masked statistics card vs CPU")
+    return res
+
+
+def phase16_slice3_times(card: str, s3: dict) -> dict:
+    from compv_tpu_torch.calib.camera import (CalibrationConfig,
+                                              calibrate_camera)
+    from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
+                                                    find_chessboard_corners)
+    from compv_tpu_torch.calib.utils import undistort_image
+    from compv_tpu_torch.slam.pipeline import (PlanarTrackerConfig,
+                                               track_planar_sequence)
+    from compv_tpu_torch.slam.posegraph import (PoseGraphConfig,
+                                                optimize_pose_graph)
+
+    views, obj, img_pts, cres = (s3["views"], s3["obj"], s3["img_pts"],
+                                 s3["cres"])
+    frames, graph = s3["frames"], s3["graph"]
+    k4 = {"k4_launches": "sht_accumulate"}
+    rows = {}
+
+    def corners_all():
+        for v in views:
+            find_chessboard_corners(v, CheckerboardConfig())
+
+    def calibration_path():
+        found = [find_chessboard_corners(v, CheckerboardConfig())
+                 for v in views]
+        pts = torch.stack([f.corners for f in found if bool(f.valid)])
+        calibrate_camera(obj, pts, CalibrationConfig())
+
+    ms = cuda_ms(corners_all, reps=3) / len(views)
+    rows["find_chessboard_corners_per_view"] = {
+        "ms": ms, **device_profile(corners_all, ms * len(views), 1, k4)}
+    for row in ("busy_ms", "kernel_launches", "device_ops", "k4_launches",
+                "profiled_wall_ms"):
+        v = rows["find_chessboard_corners_per_view"][row]
+        rows["find_chessboard_corners_per_view"][row] = (
+            None if v is None else v / len(views))
+    ms = cuda_ms(lambda: calibrate_camera(obj, img_pts, CalibrationConfig()),
+                 reps=3)
+    rows["calibrate_camera"] = {"ms": ms, **device_profile(
+        lambda: calibrate_camera(obj, img_pts, CalibrationConfig()), ms, 1)}
+    ms = cuda_ms(calibration_path, reps=2)
+    rows["calibration_path_8_views"] = {
+        "ms": ms, **device_profile(calibration_path, ms, 1, k4)}
+    ms = cuda_ms(lambda: undistort_image(views[0], cres.k, cres.dist),
+                 reps=10)
+    rows["undistort_image_720x1280"] = {"ms": ms, **device_profile(
+        lambda: undistort_image(views[0], cres.k, cres.dist), ms)}
+    n = len(frames)
+    ms = cuda_ms(lambda: track_planar_sequence(frames, PlanarTrackerConfig()),
+                 reps=2)
+    prof = device_profile(lambda: track_planar_sequence(
+        frames, PlanarTrackerConfig()), ms, 1, {"k1_launches": "fast_kernel"})
+    rows["track_planar_sequence_per_frame"] = {
+        "ms": ms / n, "frames": n, "idle_share": prof["idle_share"],
+        **{key: None if v is None else v / n for key, v in prof.items()
+           if key != "idle_share"}}
+    ms = cuda_ms(lambda: optimize_pose_graph(graph, PoseGraphConfig()),
+                 reps=2)
+    rows["optimize_pose_graph_sphere2500"] = {"ms": ms, **device_profile(
+        lambda: optimize_pose_graph(graph, PoseGraphConfig()), ms, 1)}
+    emit({"phase": 16, "card": card, **rows,
+          "timing": "median of CUDA-event timings after two warm-up calls; "
+                    "busy, idle share and launches by torch.profiler, per "
+                    "view or frame where the row says so"})
+    return rows
+
+
 def text_kernel_times(package_root: str) -> int:
     """From the package under ``package_root``: K2a, K2b (mean and per
     level over the text ladder), K3's wrapper and K5 at the text scene's
@@ -2206,6 +2771,8 @@ def main() -> int:
     phase12_sfm_components(dev)
     sfm = phase13_sfm_slice(dev)
     phase14_sfm_times(dev, card)
+    s3 = phase15_slice3(dev, scene)
+    phase16_slice3_times(card, s3)
     times.update(k45_times)
     bounds.update(k45_bounds)
     launches["K1"] = k1_launches
@@ -2226,8 +2793,13 @@ def main() -> int:
         "device_ms": times[kid][2], "bound_ms": bounds[kid]["bound_ms"],
         "bound_by": bounds[kid]["bound_by"], "library_ms": None,
         **({"launches_per_run_sfm": sfm["sfm_32_480p"]["k1_launches"],
-            "run_sfm_at": "sfm_long, 32 frames at 480x640"}
-           if kid == "K1" else {})}
+            "run_sfm_at": "sfm_long, 32 frames at 480x640",
+            "launches_per_track_planar_sequence": s3["k1_per_track"],
+            "track_planar_sequence_at": "16 frames at 720x1282, 4 levels"}
+           if kid == "K1" else {}),
+        **({"launches_per_calibration": s3["k4_per_calibration"],
+            "calibration_at": "8 views at 720x1280"}
+           if kid == "K4" else {})}
         for kid, (name, source, replaces) in KERNELS.items()]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu",

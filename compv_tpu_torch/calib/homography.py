@@ -16,10 +16,9 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.calib.ransac import _masked_sample_idx
 from compv_tpu_torch.math.stats import hartley_normalize
 from compv_tpu_torch.math.transform import apply_homography
-from compv_tpu_torch.ops import threefry
-from compv_tpu_torch.ops.topk import select_top_k
 
 __all__ = ["HomographyConfig", "HomographyResult", "compute_homography_dlt",
            "find_homography", "symmetric_transfer_error"]
@@ -133,18 +132,6 @@ def symmetric_transfer_error(h: torch.Tensor, src: torch.Tensor,
     eye = torch.eye(3, dtype=h.dtype, device=h.device)
     bwd = apply_homography(_inv3x3(h + 1e-12 * eye), dst)
     return ((fwd - dst) ** 2).sum(dim=-1) + ((bwd - src) ** 2).sum(dim=-1)
-
-
-def _masked_sample_idx(seed: int, mask: torch.Tensor, s: int, k: int
-                       ) -> torch.Tensor:
-    """(s, k) random indices drawn without replacement from the valid
-    positions of ``mask``: per hypothesis, N uniforms with invalid points
-    sunk to -1, and the k largest (the reference's
-    ``jax.random.uniform(PRNGKey(seed), (s, n))`` stream)."""
-    u = threefry.uniform(seed, (s, mask.shape[0]), mask.device)
-    u = torch.where(mask[None, :], u, -1.0)
-    _, idx = select_top_k(u, k)
-    return idx
 
 
 def _quad_nondegenerate(p4: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,8 @@
-"""Golden-value helpers: copies of ``compv_tpu/core/golden.py``
-``ccl_summary``, ``lines_summary``, ``mser_summary`` and ``quantized_hash``,
-which that module cannot lend (it imports ``jax.numpy``). They read numpy
+"""Golden-value helpers: copies of ``compv_tpu/core/golden.py``, which
+that module cannot lend (it imports ``jax.numpy``). They read numpy
 arrays, and tensors on any device; ``tests/test_torch_ccl.py``,
-``tests/test_torch_hough.py`` and ``tests/test_torch_ba.py`` prove each
-copy equal to its original.
+``tests/test_torch_hough.py``, ``tests/test_torch_ba.py`` and
+``tests/test_torch_fit.py`` prove each copy equal to its original.
 """
 from __future__ import annotations
 
@@ -11,13 +10,39 @@ import hashlib
 
 import numpy as np
 
-__all__ = ["ccl_summary", "lines_summary", "mser_summary", "quantized_hash"]
+__all__ = ["keypoint_summary", "exact_hash", "quantized_hash",
+           "assert_allclose", "ccl_summary", "lines_summary", "mser_summary"]
 
 
 def _np(x) -> np.ndarray:
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def keypoint_summary(kp) -> dict:
+    """count / sum of strength / sum of x / sum of y over the valid
+    keypoints: the reference's FAST golden tuple
+    (unittests/feature_fast.cxx:31-41)."""
+    v = _np(kp.valid)
+    return {
+        "count": int(v.sum()),
+        "sum_strength": float(_np(kp.strength)[v].sum()),
+        "sum_x": float(_np(kp.x)[v].sum()),
+        "sum_y": float(_np(kp.y)[v].sum()),
+    }
+
+
+def exact_hash(arr) -> str:
+    """MD5 of the raw bytes of an integer array (reference compv_tests_md5,
+    rows without stride)."""
+    a = np.ascontiguousarray(_np(arr))
+    return hashlib.md5(a.tobytes()).hexdigest()
+
+
+def assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=""):
+    np.testing.assert_allclose(_np(a), _np(b), rtol=rtol, atol=atol,
+                               err_msg=err_msg)
 
 
 def ccl_summary(res) -> dict:

@@ -13,11 +13,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from compv_tpu_torch.calib.camera import CalibrationConfig, CalibrationResult
 from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
                                                 CheckerboardResult)
 from compv_tpu_torch.calib.epipolar import EssentialConfig
 from compv_tpu_torch.calib.homography import HomographyConfig
+from compv_tpu_torch.calib.lm import LMConfig, LMResult
 from compv_tpu_torch.calib.pnp import PnpConfig
+from compv_tpu_torch.calib.ransac import RansacConfig, RansacResult
 from compv_tpu_torch.core.types import Keypoints, Lines
 from compv_tpu_torch.features.canny import CannyConfig
 from compv_tpu_torch.features.ccl import CclConfig, CclResult
@@ -25,15 +28,19 @@ from compv_tpu_torch.features.fast import FastConfig
 from compv_tpu_torch.features.hough import HoughKhtConfig, HoughShtConfig
 from compv_tpu_torch.features.mser import MserConfig, MserResult
 from compv_tpu_torch.features.orb import OrbConfig
+from compv_tpu_torch.math.fit import LineFit, ParabolaFit
 from compv_tpu_torch.slam.ba import BAConfig, BAProblem
 from compv_tpu_torch.slam.ba_schur import SchurConfig
 from compv_tpu_torch.slam.frontend import FrontendConfig
+from compv_tpu_torch.slam.pipeline import PlanarTrackerConfig
+from compv_tpu_torch.slam.posegraph import PoseGraph, PoseGraphConfig
 from compv_tpu_torch.slam.sfm import STATE_DTYPES, SfmConfig
 
 __all__ = ["config_from_reference", "keypoints_from_numpy",
            "keypoints_to_numpy", "result_from_numpy", "result_to_numpy",
            "ba_problem_from_numpy", "ba_problem_to_numpy",
-           "sfm_state_from_numpy"]
+           "sfm_state_from_numpy", "pose_graph_from_numpy",
+           "pose_graph_to_numpy"]
 
 _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      HomographyConfig, FastConfig,
@@ -41,7 +48,9 @@ _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      HoughShtConfig, HoughKhtConfig,
                                      CheckerboardConfig, EssentialConfig,
                                      PnpConfig, BAConfig, SchurConfig,
-                                     SfmConfig)}
+                                     SfmConfig, CalibrationConfig, LMConfig,
+                                     RansacConfig, PoseGraphConfig,
+                                     PlanarTrackerConfig)}
 
 _DTYPES = {"level": torch.int32, "valid": torch.bool}
 
@@ -52,6 +61,12 @@ _RESULT_DTYPES = {
     MserResult: {"variation": torch.float32, "valid": torch.bool},
     Lines: {"rho": torch.float32, "theta": torch.float32,
             "strength": torch.float32, "valid": torch.bool},
+    CalibrationResult: {name: torch.float32
+                        for name in CalibrationResult._fields},
+    LMResult: {name: torch.float32 for name in LMResult._fields},
+    RansacResult: {"model": torch.float32, "inliers": torch.bool},
+    LineFit: {"abc": torch.float32, "inliers": torch.bool},
+    ParabolaFit: {"abc": torch.float32, "inliers": torch.bool},
 }
 
 
@@ -59,8 +74,10 @@ def config_from_reference(cfg):
     """The port's counterpart of a ``compv_tpu`` config (FrontendConfig,
     OrbConfig, HomographyConfig, FastConfig, CclConfig, MserConfig,
     CannyConfig, HoughShtConfig, HoughKhtConfig, CheckerboardConfig,
-    EssentialConfig, PnpConfig, BAConfig, SchurConfig or SfmConfig), built
-    field by field; nested configs are converted too."""
+    EssentialConfig, PnpConfig, BAConfig, SchurConfig, SfmConfig,
+    CalibrationConfig, LMConfig, RansacConfig, PoseGraphConfig or
+    PlanarTrackerConfig), built field by field; nested configs are
+    converted too."""
     cls = _CONFIGS.get(type(cfg).__name__)
     if cls is None or not dataclasses.is_dataclass(cfg):
         raise TypeError(f"no port counterpart for {type(cfg).__name__}")
@@ -89,10 +106,12 @@ def keypoints_to_numpy(kp: Keypoints) -> dict[str, np.ndarray]:
 
 
 def result_from_numpy(cls, res, device=None):
-    """A port ``CclResult``, ``MserResult``, ``Lines`` or
-    ``CheckerboardResult`` (``cls``) from anything with its fields as
-    attributes (the ``compv_tpu`` result, or a dict of arrays), on
-    ``device``; integer fields are i32, nested results are converted too."""
+    """A port ``CclResult``, ``MserResult``, ``Lines``,
+    ``CheckerboardResult``, ``CalibrationResult``, ``LMResult``,
+    ``RansacResult`` (an array model), ``LineFit`` or ``ParabolaFit``
+    (``cls``) from anything with its fields as attributes (the
+    ``compv_tpu`` result, or a dict of arrays), on ``device``; integer
+    fields are i32, nested results are converted too."""
     get = res.__getitem__ if isinstance(res, dict) else (
         lambda k: getattr(res, k))
     if cls is CheckerboardResult:
@@ -113,8 +132,8 @@ def result_from_numpy(cls, res, device=None):
 
 
 def result_to_numpy(res) -> dict:
-    """{field: numpy array} of a port ``CclResult``, ``MserResult``,
-    ``Lines`` or ``CheckerboardResult`` (nested results as dicts)."""
+    """{field: numpy array} of a port result that ``result_from_numpy``
+    takes (nested results as dicts)."""
     return {name: (result_to_numpy(v) if isinstance(v, tuple)
                    else v.detach().cpu().numpy())
             for name, v in zip(res._fields, res)}
@@ -151,3 +170,25 @@ def sfm_state_from_numpy(state: dict, device=None) -> dict:
     return {name: torch.as_tensor(np.array(state[name]), dtype=dtype,
                                   device=device)
             for name, dtype in STATE_DTYPES.items()}
+
+
+_POSE_GRAPH_DTYPES = {"poses": torch.float32, "edge_i": torch.int32,
+                      "edge_j": torch.int32, "edge_meas": torch.float32,
+                      "edge_weight": torch.float32, "edge_valid": torch.bool}
+
+
+def pose_graph_from_numpy(graph, device=None) -> PoseGraph:
+    """A port ``PoseGraph`` from anything with its fields as attributes
+    (the ``compv_tpu`` PoseGraph, or a dict of arrays), on ``device``."""
+    get = graph.__getitem__ if isinstance(graph, dict) else (
+        lambda k: getattr(graph, k))
+    return PoseGraph(*[torch.as_tensor(np.array(get(name)),
+                                       dtype=_POSE_GRAPH_DTYPES[name],
+                                       device=device)
+                       for name in PoseGraph._fields])
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> dict[str, np.ndarray]:
+    """{field: numpy array} of a port ``PoseGraph``."""
+    return {name: getattr(graph, name).detach().cpu().numpy()
+            for name in PoseGraph._fields}

@@ -1,14 +1,29 @@
 """Point-set statistics used by robust estimation (mirror of
 ``compv_tpu/math/stats.py``): Hartley normalization over masked point sets
-(compv_math_stats.cxx normalize2D_hartley)."""
+(compv_math_stats.cxx normalize2D_hartley), masked mean and variance, and
+the masked 2-D mean squared error."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["hartley_normalize"]
+__all__ = ["hartley_normalize", "mse_2d", "masked_mean", "masked_variance"]
 
 _SQRT2 = float(np.sqrt(np.float32(2.0)))
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None):
+    m = mask.to(x.dtype)
+    if axis is None:
+        return (x * m).sum() / m.sum().clamp_min(1e-9)
+    return (x * m).sum(dim=axis) / m.sum(dim=axis).clamp_min(1e-9)
+
+
+def masked_variance(x: torch.Tensor, mask: torch.Tensor, axis=None):
+    mu = masked_mean(x, mask, axis)
+    if axis is not None:
+        mu = mu.unsqueeze(axis)
+    return masked_mean((x - mu) ** 2, mask, axis)
 
 
 def hartley_normalize(pts_xy: torch.Tensor, mask: torch.Tensor):
@@ -30,3 +45,10 @@ def hartley_normalize(pts_xy: torch.Tensor, mask: torch.Tensor):
                      torch.stack([zero, s, -s * centroid[..., 1]], -1),
                      torch.stack([zero, zero, one], -1)], -2)
     return centered * s[..., None, None], t
+
+
+def mse_2d(a_xy: torch.Tensor, b_xy: torch.Tensor, mask: torch.Tensor
+           ) -> torch.Tensor:
+    """Masked mean squared error between two (N, 2) point sets."""
+    e = ((a_xy - b_xy) ** 2).sum(dim=1)
+    return masked_mean(e, mask)

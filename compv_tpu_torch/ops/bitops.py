@@ -1,4 +1,5 @@
-"""Bit packing and unpacking (mirror of ``compv_tpu/ops/bitops.py``).
+"""Bit packing, unpacking, popcount and the logical ops (mirror of
+``compv_tpu/ops/bitops.py``; reference base/compv_bits.cxx).
 
 Descriptors stay unpacked, (N, 256) {0,1} u8, where they feed the matcher,
 and pack to (N, 32) u8 rows, LSB first, for the reference's 32-byte
@@ -8,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pack_bits_to_bytes", "unpack_bytes_to_bits"]
+__all__ = ["pack_bits_to_bytes", "unpack_bytes_to_bits", "popcount_bytes",
+           "bits_and", "bits_or", "bits_xor", "bits_not"]
 
 
 def _shifts(device) -> torch.Tensor:
@@ -27,3 +29,24 @@ def unpack_bytes_to_bits(bytes_arr: torch.Tensor) -> torch.Tensor:
     shape = bytes_arr.shape
     bits = (bytes_arr[..., None] >> _shifts(bytes_arr.device)) & 1
     return bits.reshape(*shape[:-1], shape[-1] * 8)
+
+
+def popcount_bytes(bytes_arr: torch.Tensor) -> torch.Tensor:
+    """Per-row popcount of packed bytes: (..., B) u8 -> (...,) i32."""
+    return unpack_bytes_to_bits(bytes_arr).sum(dim=-1, dtype=torch.int32)
+
+
+def bits_and(a, b):
+    return torch.bitwise_and(a, b)
+
+
+def bits_or(a, b):
+    return torch.bitwise_or(a, b)
+
+
+def bits_xor(a, b):
+    return torch.bitwise_xor(a, b)
+
+
+def bits_not(a):
+    return torch.bitwise_not(a)

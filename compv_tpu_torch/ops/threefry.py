@@ -11,6 +11,13 @@ implementation with ``jax_threefry_partitionable=True`` (its default):
   threefry2x32(key, (i >> 32, i & 0xFFFFFFFF)), i the row-major flat index;
 * an f32 uniform in [0, 1) puts the top 23 bits into the mantissa of a
   float in [1, 2) and subtracts 1;
+* ``normal(key, shape)`` draws a uniform in (-1, 1) the same way
+  (``u * 2 + nextafter(-1, 0)``, floored there) and returns
+  ``sqrt(2) * erf_inv(u)`` by the polynomial that XLA expands ``erf_inv``
+  into (Giles' single-precision form, two sets of nine coefficients split
+  at ``w = -log1p(-u^2) = 5``). The uniforms are bit-exact; XLA:CPU's
+  ``log1p`` and ``sqrt`` are its own approximations, so the normals agree
+  with ``jax.random.normal`` within a few ulp, not bit for bit;
 * ``split(key)`` gives the keys threefry2x32(key, (0, i)), i = 0, 1 (the
   fold-like split);
 * ``randint(key, shape, minval, maxval)`` splits the key, draws 32 bits
@@ -30,7 +37,7 @@ import functools
 import torch
 
 __all__ = ["prng_key", "threefry2x32", "random_bits", "uniform", "split",
-           "key_bits", "randint"]
+           "key_bits", "randint", "normal"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -125,3 +132,41 @@ def uniform(seed: int, shape: tuple[int, ...], device=None) -> torch.Tensor:
     bits = random_bits(seed, shape, device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
+
+
+# XLA's erf_inv expansion for f32 (Giles 2010), highest power first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+_ABOVE_MINUS_ONE = -0.99999994039535522   # nextafter(-1, 0) in f32
+_SQRT2_F32 = 1.41421353816986084          # f32(sqrt(2))
+
+
+def _erf_inv(u: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-u * u)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, w.sqrt() - 3.0)
+
+    def coef(i):
+        return torch.where(lt, u.new_tensor(_ERFINV_LT5[i]),
+                           u.new_tensor(_ERFINV_GE5[i]))
+
+    p = coef(0)
+    for i in range(1, 9):
+        p = coef(i) + p * w
+    return torch.where(u.abs() == 1.0, u * torch.inf, p * u)
+
+
+def normal(key: tuple[int, int], shape: tuple[int, ...], device=None
+           ) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (f32) for the key pair ``key``:
+    the same uniforms bit for bit, the same erf_inv polynomial (within a
+    few ulp of the reference, see the module docstring)."""
+    bits = key_bits(key, shape, device)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    f = mant.view(torch.float32) - 1.0
+    u = (f * 2.0 + _ABOVE_MINUS_ONE).clamp_min(_ABOVE_MINUS_ONE)
+    return _erf_inv(u) * _SQRT2_F32

@@ -1,7 +1,8 @@
 """The hand kernels on the card: FAST (K1), the CCL labeler (K2a / K2b),
 the row compactor (K3), the SHT accumulator (K4) and the strip label
 counter (K5), each against its plain twin, exact, and the port on CUDA
-against the port on CPU. Every test needs an NVIDIA GPU
+against the port on CPU (slice 3 too: calibration, the pose graph, planar
+tracking's K1 launches, the Q0.16 blur, scaling and rotate_fast). Every test needs an NVIDIA GPU
 and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
@@ -829,3 +830,158 @@ def test_sfm_6_frames_on_the_card_matches_cpu(dev):
     span = float(np.linalg.norm(gt[-1] - gt[0]))
     assert res.num_tracks == res_cpu.num_tracks
     assert ate <= max(1.5 * ate_cpu, 0.03 * span)
+
+
+# ---------------------------------------------------------------- slice 3
+
+def test_calibrate_camera_cuda_matches_cpu(dev):
+    """The same corners calibrated on the card and on the CPU: K and the
+    RMS within 1e-3 relative; the RMS does not rise after LM."""
+    from compv_tpu_torch.calib.camera import (calibrate_camera,
+                                              checkerboard_object_points)
+    from compv_tpu_torch.calib.utils import project_points_dist
+
+    rs = np.random.default_rng(0)
+    obj = checkerboard_object_points(6, 8, 30.0, device="cpu")
+    k = torch.tensor([[800.0, 0, 320], [0, 810, 240], [0, 0, 1]])
+    dist = torch.tensor([-0.2, 0.05, 0.0, 0.0])
+    views = []
+    for i in range(5):
+        rvec = torch.tensor(np.array([0.12, -0.1, 0.05]) * (i - 2)
+                            + rs.normal(0, 0.03, 3), dtype=torch.float32)
+        tvec = torch.tensor([-120.0, -90.0, 900.0]) + torch.from_numpy(
+            rs.normal(0, 12.0, 3).astype(np.float32))
+        p = project_points_dist(obj, k, dist, rvec, tvec)
+        views.append(p + torch.from_numpy(
+            rs.normal(0, 0.1, p.shape).astype(np.float32)))
+    img_pts = torch.stack(views)
+    card = calibrate_camera(obj.to(dev), img_pts.to(dev))
+    cpu = calibrate_camera(obj, img_pts)
+    torch.cuda.synchronize()
+    assert float((card.k.cpu() - cpu.k).abs().max()) <= 1e-3 * float(
+        cpu.k.abs().max())
+    assert abs(float(card.rms) - float(cpu.rms)) <= 1e-3 * float(cpu.rms)
+    assert float(card.rms) <= float(card.rms_initial) + 1e-6
+    assert abs(float(card.k[0, 0]) - 800) / 800 < 0.01
+
+
+def _ring(n=64, noise=0.02, seed=2):
+    """tests/test_slam_io.py's ring (noisy odometry, an exact loop closure
+    of weight 100, chained start), made with the port on the CPU."""
+    from compv_tpu_torch.interop import pose_graph_from_numpy
+    from compv_tpu_torch.slam.posegraph import compose, relative_pose
+
+    rs = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    true = np.zeros((n, 6), np.float32)
+    true[:, 2] = ang
+    true[:, 3], true[:, 4] = np.cos(ang), np.sin(ang)
+    tt = torch.from_numpy(true)
+    j = (np.arange(n) + 1) % n
+    rv, tv = relative_pose(tt[:, :3], tt[:, 3:], tt[j, :3], tt[j, 3:])
+    meas = torch.cat([rv, tv], 1).numpy()
+    meas[j != 0] += rs.normal(0, noise, (n - 1, 6))
+    meas = meas.astype(np.float32)
+    init = true.copy()
+    for i in range(1, n):
+        r, t = compose(torch.from_numpy(init[i - 1, :3]),
+                       torch.from_numpy(init[i - 1, 3:]),
+                       torch.from_numpy(meas[i - 1, :3]),
+                       torch.from_numpy(meas[i - 1, 3:]))
+        init[i] = torch.cat([r, t]).numpy()
+    return pose_graph_from_numpy({
+        "poses": init, "edge_i": np.arange(n, dtype=np.int32),
+        "edge_j": j.astype(np.int32), "edge_meas": meas,
+        "edge_weight": np.where(j == 0, 100.0, 1.0).astype(np.float32),
+        "edge_valid": np.ones(n, bool)})
+
+
+def test_posegraph_on_the_card_is_deterministic_and_matches_cpu(dev):
+    """The 64-pose ring: two card runs bit-identical (the sums over edges
+    are gathers, no atomics); the final cost within 1e-3 relative of the
+    CPU's."""
+    from compv_tpu_torch.slam.posegraph import (PoseGraphConfig,
+                                                optimize_pose_graph)
+
+    graph = _ring()
+    on_card = graph._replace(**{k: v.to(dev) for k, v in
+                                graph._asdict().items()})
+    a, ca = optimize_pose_graph(on_card, PoseGraphConfig())
+    b, cb = optimize_pose_graph(on_card, PoseGraphConfig())
+    h, ch = optimize_pose_graph(graph, PoseGraphConfig())
+    torch.cuda.synchronize()
+    assert torch.equal(a.poses, b.poses) and torch.equal(ca, cb)
+    assert abs(float(ca) - float(ch)) <= 1e-3 * float(ch)
+
+
+def test_q16_blur_and_scaling_cuda_equal_cpu(dev):
+    from compv_tpu_torch.image.scale import scale_bicubic, scale_nearest
+    from compv_tpu_torch.ops.conv import gaussian_blur_q16
+
+    img = torch.from_numpy(_scene(299, 401))
+    on_card = img.to(dev)
+    assert torch.equal(gaussian_blur_q16(on_card).cpu(),
+                       gaussian_blur_q16(img))
+    for fn in (scale_nearest, scale_bicubic):
+        assert torch.equal(fn(on_card, 201, 533).cpu(), fn(img, 201, 533))
+
+
+@pytest.mark.parametrize("angle", [0.0, 17.0, -44.0])
+def test_rotate_fast_cuda_matches_cpu(dev, angle):
+    """The card's tan and sin may differ from the CPU's by an ulp, which
+    moves a shear's lerp weight: values within 1e-2 of 255."""
+    from compv_tpu_torch.image.scale import rotate_fast
+
+    img = torch.from_numpy(_scene(120, 200))
+    got = rotate_fast(img.to(dev), angle).cpu()
+    want = rotate_fast(img, angle)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-2
+
+
+def test_track_planar_sequence_launches_k1(dev):
+    """tests/test_slam_io.py's textured plane, three frames of 4 levels:
+    K1 launched 12 times; the chained H finds the shifts."""
+    from compv_tpu_torch.slam.pipeline import (PlanarTrackerConfig,
+                                               track_planar_sequence)
+
+    from scipy import ndimage
+
+    rs = np.random.default_rng(5)
+    base = ndimage.gaussian_filter(
+        rs.uniform(0, 255, (200, 280)).astype(np.float32), 1.5)
+    base = ((base - base.min()) / np.ptp(base) * 255).astype(np.uint8)
+    frames = [np.roll(base, s, axis=1) for s in (0, 4, 8)]
+    torch.cuda.synchronize()
+    before = fast_kernel.launches
+    res = track_planar_sequence(frames, PlanarTrackerConfig(), device=dev)
+    torch.cuda.synchronize()
+    assert fast_kernel.launches - before == 12
+    assert all(res.tracked)
+    for h, s in zip(res.h_to_first, (0, 4, 8)):
+        assert abs(h[0, 2] - s) < 1.5 and abs(h[1, 2]) < 1.5
+
+
+def test_fits_cuda_match_cpu(dev):
+    """fit_line's inliers equal on the card and the CPU; fit_parabola's
+    coefficients within 1e-3 relative (the card's lstsq is QR, gels, of
+    the tall full-rank inlier system; the CPU's another LAPACK driver)."""
+    from compv_tpu_torch.math.fit import fit_line, fit_parabola
+
+    rs = np.random.default_rng(3)
+    n = 4096
+    x = rs.uniform(-10, 10, n)
+    out = rs.random(n) < 0.3
+    y = 0.3 * x ** 2 - 2 * x + 5 + rs.normal(0, 0.1, n)
+    y[out] = rs.uniform(0, 60, int(out.sum()))
+    par_pts = torch.as_tensor(np.stack([x, y], 1), dtype=torch.float32)
+    yl = 0.7 * x + 3 + rs.normal(0, 0.1, n)
+    yl[out] = rs.uniform(-20, 20, int(out.sum()))
+    line_pts = torch.as_tensor(np.stack([x, yl], 1), dtype=torch.float32)
+    card, cpu = fit_line(line_pts.to(dev), threshold=0.5), fit_line(
+        line_pts, threshold=0.5)
+    assert torch.equal(card.inliers.cpu(), cpu.inliers)
+    card, cpu = fit_parabola(par_pts.to(dev), threshold=0.8), fit_parabola(
+        par_pts, threshold=0.8)
+    assert float((card.abc.cpu() - cpu.abc).abs().max()) <= 1e-3 * float(
+        cpu.abc.abs().max())
