@@ -130,7 +130,32 @@ Phases, each printing its lines before the last:
      launches by torch.profiler: find_chessboard_corners per view,
      calibrate_camera, the 8-view calibration path (K4 kernels counted in
      the trace), undistort_image at 720x1280, track_planar_sequence per
-     frame (K1 kernels counted in the trace) and optimize_pose_graph.
+     frame (K1 kernels counted in the trace) and optimize_pose_graph;
+ 17. slice 4 at full width, each part against the port on the CPU, with
+     every hand kernel's count at 0 after it (no Pallas kernel lies on
+     this path): (a) bench.py's slice-4 image rows on its own inputs (the
+     720x1282 scene, its rolled RGB, the seeded I420 chroma, the 1285x1285
+     binary; bench.py:109-125) and the other conversions, LUT,
+     projections and morph operators, bit-equal to the CPU but the float32
+     integral images (1e-6 relative), and the goldens md5_rgb_to_hsv,
+     md5_integral, md5_erode_3x3, md5_dilate_3x3 computed on the card;
+     (b) moments, fast_atan2_deg of the scene's Sobel gradients against
+     the exact angle, saturating ops on 720p u8 / i16 / u16 planes, batched
+     eigen_symm / svd / pseudo_inverse / inverse_3x3 with singular members;
+     (c) HOG at 720x1282, every interp mode with L2-Hys and every norm with
+     bilinear, by the tests' tolerances (pixels whose vote moves bin
+     counted with one-pixel cells), two card runs identical; (d) the
+     classifier path: every 128x64 window of the dense descriptor (11,475
+     of 3,780 values), labels from the scene's checkerboard patch, RBF and
+     linear SVMs trained on 2,048 (numpy seed 0), PCA to 64 and a 5-NN
+     vote, each window count within 2 of the reference's (HOG_SVM_REF,
+     from scripts/hog_svm_reference.py) and labels as the CPU's wherever
+     |decision| >= 1e-3, the ANN index's recall against exact search, and
+     platt_fit against scipy's minimum;
+ 18. times of slice 4 (CUDA events) with device busy, idle share and
+     launches by torch.profiler: bench.py's slice-4 rows by their names,
+     hog_8x8_l2hys, svm_train on 2,048 windows, svm_decision on 11,475,
+     pca_compute (11,475 x 3,780 -> 64) and knn_search (11,475 queries).
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -2121,6 +2146,47 @@ CAL_K = np.array([[1000.0, 0.0, 640.0], [0.0, 1000.0, 360.0],
 # final / initial cost of the reference (compv_tpu, JAX 0.9.0 on a CPU) on
 # sphere_graph() with PoseGraphConfig(): scripts/posegraph_sphere_reference.py
 POSEGRAPH_REF_RATIO = 0.017327983514009965
+# the reference's classifier path (compv_tpu, JAX 0.9.0 on a CPU) on the
+# windows of hog_windows(): windows right of 11,475 with the RBF and the
+# linear SVM and the 5-NN vote in PCA space, the smallest RBF |decision|,
+# the PCA's largest and 64th eigenvalue: scripts/hog_svm_reference.py
+HOG_SVM_REF = {"windows": 11475, "rbf_correct": 11471,
+               "linear_correct": 11455, "knn5_correct": 11449,
+               "rbf_min_abs_decision": 0.0032, "pca_eig_first": 7.773,
+               "pca_eig_64th": 0.0236}
+# a window of the classifier path: 128 x 64 pixels, 15 x 7 HOG blocks
+HOG_WINDOW_BLOCKS = (15, 7)
+HOG_TRAIN = 2048
+
+
+def hog_windows(desc: torch.Tensor) -> torch.Tensor:
+    """Every 128 x 64 window of a dense HOG descriptor (n_by, n_bx, 36) at a
+    one-cell stride, row-major: (windows, 15 * 7 * 36), each window its
+    blocks in row-major order."""
+    by, bx = HOG_WINDOW_BLOCKS
+    w = desc.unfold(0, by, 1).unfold(1, bx, 1)      # (ny, nx, 36, by, bx)
+    return w.permute(0, 1, 3, 4, 2).reshape(-1, by * bx * desc.shape[2])
+
+
+def hog_window_labels(desc_shape, cell: int = 8) -> np.ndarray:
+    """+1 where a window's centre lies inside bench.py's checkerboard patch
+    (x 300-1000, y 150-570, bench.py:46), else -1, float32."""
+    by, bx = HOG_WINDOW_BLOCKS
+    ny, nx = desc_shape[0] - by + 1, desc_shape[1] - bx + 1
+    cy = np.arange(ny)[:, None] * cell + (by + 1) * cell // 2
+    cx = np.arange(nx)[None, :] * cell + (bx + 1) * cell // 2
+    inside = (cx > 300) & (cx < 1000) & (cy > 150) & (cy < 570)
+    return np.where(inside, 1.0, -1.0).astype(np.float32).reshape(-1)
+
+
+def hog_train_index(n: int) -> np.ndarray:
+    """The training windows: HOG_TRAIN of n drawn by numpy seed 0."""
+    return np.random.default_rng(0).choice(n, HOG_TRAIN, replace=False)
+
+
+def knn_vote(neighbour_labels: torch.Tensor) -> torch.Tensor:
+    """Majority of an odd number of +-1 labels per row."""
+    return torch.where(neighbour_labels.sum(dim=1) >= 0, 1.0, -1.0)
 
 
 def calibration_views(dev, n_views: int = 8):
@@ -2642,6 +2708,480 @@ def phase16_slice3_times(card: str, s3: dict) -> dict:
     return rows
 
 
+def bench_inputs(scene: np.ndarray) -> dict:
+    """bench.py:109-125's inputs of the slice-4 rows: the scene, its rolled
+    RGB, the seeded I420 chroma u_p / v_p and the 1285x1285 binary big_bin
+    (the generator's draws in bench.py's order)."""
+    h, w = scene.shape
+    rs = np.random.default_rng(1)
+    rgb = np.stack([scene, np.roll(scene, 3, 0), np.roll(scene, 7, 1)], -1)
+    u_p = rs.integers(0, 255, (h // 2, w // 2), dtype=np.uint8)
+    v_p = rs.integers(0, 255, (h // 2, w // 2), dtype=np.uint8)
+    for shape in ((200, 256), (258, 256), (2048, 256), (2048, 256)):
+        rs.integers(0, 2, shape, dtype=np.uint8)   # the matcher's inputs
+    big_bin = rs.integers(0, 2, (1285, 1285), dtype=np.uint8) * 255
+    return {"gray": scene, "rgb": rgb, "u_p": u_p, "v_p": v_p,
+            "big_bin": big_bin}
+
+
+def slice4_image_rows(inputs: dict) -> dict:
+    """{row: (fn, args, bar)} of phase 17 (a): bench.py's slice-4 rows by
+    their names, then the other conversions, LUT, projections and morph
+    operators, on bench.py's inputs. bar is "exact" or a relative
+    tolerance."""
+    from compv_tpu_torch.image import color, histogram, morph, threshold
+    from compv_tpu_torch.image.integral import (box_mean_var, integral,
+                                                integral_squared)
+
+    gray, rgb = inputs["gray"], inputs["rgb"]
+    u_p, v_p, big = inputs["u_p"], inputs["v_p"], inputs["big_bin"]
+    h, w = gray.shape
+    rgba = np.concatenate([rgb, gray[..., None]], -1)
+    uv = np.stack([u_p, v_p], -1)
+    packed = np.ascontiguousarray(np.stack(
+        [gray[:, 0::2], u_p.repeat(2, 0), gray[:, 1::2], v_p.repeat(2, 0)],
+        -1).reshape(h, w * 2))
+    se3 = morph.strel("cross", 3)
+    lut = (255 - np.arange(256)).astype(np.float32)
+
+    def yuv420p_to_hsv(y, u, v):
+        return color.yuv444_to_hsv(y, color._upsample2(u, h, w),
+                                   color._upsample2(v, h, w))
+
+    return {
+        "rgb24_to_gray": (color.rgb_to_gray, (rgb,), "exact"),
+        "i420_to_rgb24": (color.i420_to_rgb, (gray, u_p, v_p), "exact"),
+        "rgb24_to_hsv": (color.rgb_to_hsv, (rgb,), "exact"),
+        "yuv420p_to_hsv": (yuv420p_to_hsv, (gray, u_p, v_p), "exact"),
+        # the planes materialized (the port's split gives views)
+        "split_rgb": (lambda x: torch.stack(color.split_channels(x)), (rgb,),
+                      "exact"),
+        "hist_equalize": (histogram.equalize, (gray,), "exact"),
+        "integral_sq": (lambda x: integral_squared(x, torch.float32),
+                        (gray,), 1e-6),
+        "integral_f32": (lambda x: integral(x, torch.float32), (gray,), 1e-6),
+        "adaptive_thresh_5x5": (lambda x: threshold.threshold_adaptive(
+            x, 5, 21), (gray,), "exact"),
+        "wolf_binarization_41x41": (lambda x: threshold.threshold_wolf(
+            x, 41), (gray,), "exact"),
+        "morph_erode_3x3": (lambda x: morph.erode(x, se3), (big,), "exact"),
+        "morph_close_3x3": (lambda x: morph.close_(x, se3), (big,), "exact"),
+        "integral_u8": (integral, (gray,), "exact"),
+        "box_mean_var_41": (lambda x: torch.stack(box_mean_var(x, 41)),
+                            (gray,), "exact"),
+        "bgr24_to_gray": (color.bgr_to_gray, (rgb,), "exact"),
+        "rgba32_to_gray": (color.rgba_to_gray, (rgba,), "exact"),
+        "rgb24_to_yuv444": (lambda x: torch.stack(color.rgb_to_yuv444(x)),
+                            (rgb,), "exact"),
+        "rgb24_to_i420_y": (lambda x: color.rgb_to_i420(x)[0], (rgb,),
+                            "exact"),
+        "nv12_to_rgb24": (color.nv12_to_rgb, (gray, uv), "exact"),
+        "nv21_to_rgb24": (color.nv21_to_rgb, (gray, uv), "exact"),
+        "i422_to_rgb24": (color.i422_to_rgb,
+                          (gray, u_p.repeat(2, 0), v_p.repeat(2, 0)),
+                          "exact"),
+        "yuyv_to_rgb24": (color.yuyv_to_rgb, (packed,), "exact"),
+        "uyvy_to_rgb24": (color.uyvy_to_rgb, (packed,), "exact"),
+        "rgb24_to_hsl": (color.rgb_to_hsl, (rgb,), "exact"),
+        "rgb24_to_rgb565": (lambda x: color.rgb_to_rgb565(x).to(torch.int32),
+                            (rgb,), "exact"),
+        "rgb565_to_rgb24": (lambda x: color.rgb565_to_rgb(
+            color.rgb_to_rgb565(x)), (rgb,), "exact"),
+        "merge_rgb": (lambda x: color.merge_channels(
+            *color.split_channels(x)[::-1]), (rgb,), "exact"),
+        "apply_lut256": (lambda x: histogram.apply_lut256(
+            x, torch.from_numpy(lut).to(x.device)), (gray,), "exact"),
+        "projection_x": (histogram.projection_x, (gray,), "exact"),
+        "projection_y": (histogram.projection_y, (gray,), "exact"),
+        "morph_dilate_3x3": (lambda x: morph.dilate(x, se3), (big,), "exact"),
+        "morph_open_rect5": (lambda x: morph.open_(x, morph.strel("rect", 5)),
+                             (gray,), "exact"),
+        "morph_gradient_3x3": (morph.morph_gradient, (gray,), "exact"),
+        "top_hat_3x3": (morph.top_hat, (gray,), "exact"),
+        "black_hat_3x3": (morph.black_hat, (gray,), "exact"),
+    }
+
+
+def slice4_goldens(dev) -> list:
+    """md5_rgb_to_hsv, md5_integral, md5_erode_3x3 and md5_dilate_3x3 of
+    scripts/make_goldens.py:56-65, computed on the card."""
+    from compv_tpu_torch.core.golden import exact_hash
+    from compv_tpu_torch.image.color import rgb_to_hsv
+    from compv_tpu_torch.image.integral import integral
+    from compv_tpu_torch.image.morph import dilate, erode
+    from compv_tpu_torch.image.threshold import threshold_otsu
+
+    fixtures = load_fixtures()
+    with open(os.path.join(ROOT, "goldens", "goldens.json")) as f:
+        goldens = json.load(f)
+    gray = torch.from_numpy(fixtures.make_test_image()).to(dev)
+    rgb = torch.from_numpy(fixtures.make_test_rgb()).to(dev)
+    binary = threshold_otsu(gray)[0]
+    got = {"md5_rgb_to_hsv": exact_hash(rgb_to_hsv(rgb)),
+           "md5_integral": exact_hash(integral(gray).to(torch.int64)),
+           "md5_erode_3x3": exact_hash(erode(binary)),
+           "md5_dilate_3x3": exact_hash(dilate(binary))}
+    for key, value in got.items():
+        check(value == goldens[key], f"{key} on the card: {value}")
+    return sorted(got)
+
+
+def to_dev(args, dev):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 if isinstance(a, np.ndarray) else a for a in args)
+
+
+def slice4_math(dev, scene: np.ndarray) -> dict:
+    """Phase 17 (b): moments, the polynomial atan2 of the scene's Sobel
+    gradients, saturating ops on 720p planes, batched decompositions with
+    singular members, card against CPU."""
+    from compv_tpu_torch.features.edges import sobel_gradients
+    from compv_tpu_torch.math import matrix, ops
+
+    res = {}
+    g = torch.from_numpy(scene)
+    mom, mom_cpu = ops.image_moments(g.to(dev), 3), ops.image_moments(g, 3)
+    res["image_moments_rel"] = max(rel_err(mom[k], mom_cpu[k]) for k in mom)
+    res["hu_moments_rel"] = rel_err(ops.hu_moments(g.to(dev)),
+                                    ops.hu_moments(g))
+    check(res["image_moments_rel"] <= 1e-5 and res["hu_moments_rel"] <= 1e-4,
+          f"moments card vs CPU {res['image_moments_rel']}, "
+          f"{res['hu_moments_rel']}")
+    gx, gy = sobel_gradients(g.to(dev))
+    fast = ops.fast_atan2_deg(gy, gx)
+    exact = ops.atan2_deg_exact(gy, gx)
+    err = (fast - exact).abs()
+    err = torch.minimum(err, 360.0 - err)
+    res["fast_atan2_deg_max_err_deg"] = float(err.max())
+    check(res["fast_atan2_deg_max_err_deg"] <= 0.011,
+          f"fast_atan2_deg off by {res['fast_atan2_deg_max_err_deg']} deg")
+    check(torch.equal(fast.cpu(), ops.fast_atan2_deg(gy.cpu(), gx.cpu())),
+          "fast_atan2_deg card != CPU")
+    ex_cpu = ops.atan2_deg_exact(gy.cpu(), gx.cpu())
+    res["atan2_deg_exact_max_diff_vs_cpu"] = float(
+        (exact.cpu() - ex_cpu).abs().max())
+    rs = np.random.default_rng(17)
+    planes = {"u8": rs.integers(0, 256, (2, 720, 1282), dtype=np.uint8),
+              "i16": rs.integers(-32768, 32768, (2, 720, 1282),
+                                 dtype=np.int64).astype(np.int16),
+              "u16": rs.integers(0, 65536, (2, 720, 1282),
+                                 dtype=np.int64).astype(np.uint16)}
+    for name, p in planes.items():
+        a, b = torch.from_numpy(p[0]), torch.from_numpy(p[1])
+        for op in ("add", "sub", "mul_elementwise"):
+            got = getattr(ops, op)(a.to(dev), b.to(dev))
+            check(got.dtype == a.dtype and torch.equal(
+                got.cpu(), getattr(ops, op)(a, b)),
+                f"{op} on {name} planes: card != CPU")
+    res["saturating_ops_720p"] = "exact (u8, i16, u16; add, sub, mul)"
+    # 4,096 symmetric 3x3; 4,096 general 3x3, well conditioned but for a
+    # quarter of small integers that are singular (rank 1 or 2: their det is
+    # 0 exactly in the cofactor expansion, on both devices)
+    sym = rs.normal(0, 1, (4096, 3, 3)).astype(np.float32)
+    sym = sym + sym.transpose(0, 2, 1)
+    mats = (rs.normal(0, 1, (4096, 3, 3)) + 3 * np.eye(3)).astype(np.float32)
+    ints = rs.integers(-4, 5, (1024, 3, 3)).astype(np.float32)
+    ints[:512] = ints[:512, :, :1] * ints[:512, :1, :]       # rank <= 1
+    ints[512:, 2] = ints[512:, 0] + ints[512:, 1]            # rank <= 2
+    mats[:1024] = ints
+    s_dev = torch.from_numpy(sym).to(dev)
+    m_dev = torch.from_numpy(mats).to(dev)
+    vals, vecs = matrix.eigen_symm(s_dev)
+    vals_c = matrix.eigen_symm(torch.from_numpy(sym))[0]
+    res["eigen_symm_values_rel"] = rel_err(vals, vals_c)
+    # the vectors by what they reconstruct (their signs are the solver's)
+    res["eigen_symm_reconstruction_rel"] = rel_err(
+        (vecs * vals[:, None, :]) @ vecs.mT, torch.from_numpy(sym))
+    u, sv, vt = matrix.svd(m_dev)
+    res["svd_reconstruction_rel"] = rel_err((u * sv[:, None, :]) @ vt,
+                                            torch.from_numpy(mats))
+    res["svd_values_rel"] = rel_err(sv, matrix.svd(torch.from_numpy(mats))[1])
+    res["pseudo_inverse_rel"] = rel_err(
+        matrix.pseudo_inverse(m_dev), matrix.pseudo_inverse(
+            torch.from_numpy(mats)))
+    inv = matrix.inverse_3x3(m_dev)
+    inv_c = matrix.inverse_3x3(torch.from_numpy(mats))
+    singular = matrix.determinant(torch.from_numpy(mats)).abs() <= 1e-12
+    check(torch.equal(matrix.determinant(m_dev).cpu().abs() <= 1e-12,
+                      singular) and int(singular.sum()) == 1024,
+          "inverse_3x3: the singular set differs")
+    res["inverse_3x3_singular"] = int(singular.sum())
+    res["inverse_3x3_rel"] = rel_err(inv, inv_c)
+    check(max(res["eigen_symm_values_rel"], res["svd_values_rel"],
+              res["eigen_symm_reconstruction_rel"],
+              res["svd_reconstruction_rel"]) <= 1e-5
+          and bool(torch.isfinite(inv).all())
+          and max(res["pseudo_inverse_rel"], res["inverse_3x3_rel"]) <= 1e-4,
+          f"decompositions card vs CPU {res}")
+    return res
+
+
+def hog_card_vs_cpu(dev, scene: np.ndarray) -> dict:
+    """Phase 17 (c): HOG at 720x1282, every interp mode with L2-Hys and
+    every norm with bilinear, card against CPU by the tests' tolerances;
+    for the step modes, the pixels whose vote moves (one-pixel cells)."""
+    from compv_tpu_torch.features.hog import HogConfig, hog_descriptor
+
+    g = torch.from_numpy(scene)
+    gd = g.to(dev)
+    res = {}
+    configs = [("l2hys_" + m, HogConfig(interp=m))
+               for m in ("nearest", "bilinear", "bilinear_lut")]
+    configs += [("bilinear_" + n, HogConfig(norm=n))
+                for n in ("none", "l1", "l1sqrt", "l2")]
+    for name, cfg in configs:
+        a = hog_descriptor(gd, cfg).cpu()
+        b = hog_descriptor(g, cfg)
+        moved = 0
+        if cfg.interp != "bilinear":
+            one = HogConfig(cell_size=1, block_size=1, norm="none",
+                            interp=cfg.interp)
+            pa, pb = hog_descriptor(gd, one).cpu(), hog_descriptor(g, one)
+            mag = pb.abs().sum(-1).clamp_min(1.0)
+            moved = int(((pa - pb).abs() > 1e-4 * mag[..., None]).any(-1)
+                        .sum())
+        if cfg.norm == "l1sqrt":
+            a, b = a * a, b * b
+        diff = float((a - b).abs().max())
+        tol = 2e-6 * max(1.0, float(b.abs().max()))
+        check(moved <= 16 and (moved > 0 or diff <= tol),
+              f"HOG {name} card vs CPU: {diff} > {tol}, {moved} pixels "
+              "moved")
+        res[name] = {"max_diff": diff, "tolerance": tol,
+                     "pixels_moved": moved}
+    first = hog_descriptor(gd, HogConfig())
+    check(torch.equal(first, hog_descriptor(gd, HogConfig())),
+          "HOG: a second card run differs")
+    res["second_run"] = "identical"
+    return res
+
+
+def hog_classifier(dev, scene: np.ndarray) -> dict:
+    """Phase 17 (d): the 720p descriptor -> 11,475 windows of 3,780 values
+    -> RBF and linear SVMs trained on 2,048, PCA to 64 and a 5-NN vote, the
+    ANN index's recall, Platt scaling; on the card, against the reference's
+    counts (HOG_SVM_REF) and the port on the CPU on the same windows."""
+    from compv_tpu_torch.features.hog import HogConfig, hog_descriptor
+    from compv_tpu_torch.math.pca import pca_compute, pca_project
+    from compv_tpu_torch.ml.knn import (AnnConfig, ann_build, ann_search,
+                                        knn_build, knn_search)
+    from compv_tpu_torch.ml.svm import (SvmConfig, platt_fit, svm_decision,
+                                        svm_train)
+
+    desc = hog_descriptor(torch.from_numpy(scene).to(dev), HogConfig())
+    windows = hog_windows(desc)
+    labels_np = hog_window_labels(tuple(desc.shape))
+    train_np = hog_train_index(windows.shape[0])
+    labels = torch.from_numpy(labels_np).to(dev)
+    train = torch.from_numpy(train_np).to(dev)
+    x, y = windows[train], labels[train]
+    w_cpu, x_cpu, y_cpu = windows.cpu(), x.cpu(), y.cpu()
+    res = {"windows": int(windows.shape[0]), "dim": int(windows.shape[1]),
+           "positive_share": float((labels_np > 0).mean())}
+
+    def correct(dec):
+        return int((torch.where(dec >= 0, 1.0, -1.0) == labels).sum())
+
+    models = {}
+    for name, cfg in (("rbf", SvmConfig()),
+                      ("linear", SvmConfig(kernel="linear"))):
+        m = svm_train(x, y, cfg)
+        dec = svm_decision(m, windows)
+        m_cpu = svm_train(x_cpu, y_cpu, cfg)
+        dec_cpu = svm_decision(m_cpu, w_cpu)
+        sure = dec_cpu.abs() >= 1e-3
+        same = torch.equal((dec.cpu() >= 0)[sure], (dec_cpu >= 0)[sure])
+        ref = HOG_SVM_REF[f"{name}_correct"]
+        res[name] = {"correct": correct(dec), "reference": ref,
+                     "correct_cpu": int((torch.where(dec_cpu >= 0, 1.0, -1.0)
+                                         == labels.cpu()).sum()),
+                     "min_abs_decision": float(dec.abs().min()),
+                     "alpha_rel_vs_cpu": rel_err(m.alpha_y, m_cpu.alpha_y),
+                     "decision_rel_vs_cpu": rel_err(dec, dec_cpu),
+                     "labels_equal_cpu_where_sure": same,
+                     "windows_below_1e-3": int((~sure).sum())}
+        check(abs(res[name]["correct"] - ref) <= 2 and same,
+              f"{name} SVM: {res[name]}")
+        models[name] = (m, dec)
+    pca = pca_compute(windows, 64)
+    proj, proj_x = pca_project(pca, windows), pca_project(pca, x)
+    idx, _ = knn_search(knn_build(proj_x), proj, 5)
+    vote = knn_vote(y[idx.long()])
+    pca_cpu = pca_compute(w_cpu, 64)
+    idx_cpu, _ = knn_search(knn_build(pca_project(pca_cpu, x_cpu)),
+                            pca_project(pca_cpu, w_cpu), 5)
+    vote_cpu = knn_vote(y_cpu[idx_cpu.long()])
+    vals = pca.values.cpu()
+    res["pca_knn5"] = {
+        "correct": int((vote == labels).sum()),
+        "reference": HOG_SVM_REF["knn5_correct"],
+        "correct_cpu": int((vote_cpu == labels.cpu()).sum()),
+        "votes_equal_cpu": int((vote.cpu() == vote_cpu).sum()),
+        "eig_first": float(vals[0]), "eig_64th": float(vals[-1]),
+        "eig_rel_vs_cpu": rel_err(pca.values, pca_cpu.values),
+        "reference_eig": [HOG_SVM_REF["pca_eig_first"],
+                          HOG_SVM_REF["pca_eig_64th"]]}
+    check(abs(res["pca_knn5"]["correct"] - HOG_SVM_REF["knn5_correct"]) <= 2
+          and res["pca_knn5"]["eig_rel_vs_cpu"] <= 1e-4,
+          f"PCA + 5-NN: {res['pca_knn5']}")
+    ann = ann_build(proj_x, AnnConfig())
+    aidx, _ = ann_search(ann, proj, 5, AnnConfig())
+    recall = float((aidx[:, :, None] == idx[:, None, :]).any(-1).float()
+                   .mean())
+    aidx_cpu, _ = ann_search(ann_build(proj_x.cpu(), AnnConfig()),
+                             proj.cpu(), 5, AnnConfig())
+    res["ann"] = {"recall_at_5_vs_exact": recall,
+                  "index_equal_cpu": float((aidx.cpu() == aidx_cpu).float()
+                                           .mean()),
+                  "correct": int((knn_vote(y[aidx.long()]) == labels).sum())}
+    check(recall >= 0.5, f"ANN recall {recall}")
+    # Platt scaling of the RBF decisions, against scipy's minimum
+    dec = models["rbf"][1]
+    a, b = platt_fit(dec, labels)
+    res["platt"] = platt_vs_scipy(dec.cpu().numpy(), labels_np,
+                                  float(a), float(b))
+    check(res["platt"]["rel_err"] <= 1e-4, f"platt_fit {res['platt']}")
+    return {"res": res, "x": x, "y": y, "windows": windows, "proj": proj,
+            "proj_x": proj_x, "rbf": models["rbf"][0]}
+
+
+def platt_vs_scipy(dec: np.ndarray, y: np.ndarray, a: float, b: float
+                   ) -> dict:
+    """(A, B) against the minimum scipy's BFGS finds in float64 for the
+    regularized sigmoid NLL of libsvm's sigmoid_train."""
+    import scipy.optimize
+
+    dec = dec.astype(np.float64)
+    n_pos, n_neg = (y > 0).sum(), (y <= 0).sum()
+    t = np.where(y > 0, (n_pos + 1.0) / (n_pos + 2.0), 1.0 / (n_neg + 2.0))
+
+    def nll(ab):
+        z = ab[0] * dec + ab[1]
+        return float(np.sum(np.logaddexp(0.0, z) - (1.0 - t) * z))
+
+    def grad(ab):
+        d = t - 1.0 / (1.0 + np.exp(ab[0] * dec + ab[1]))
+        return np.array([np.sum(d * dec), np.sum(d)])
+
+    opt = scipy.optimize.minimize(nll, np.zeros(2), jac=grad, method="BFGS",
+                                  options={"gtol": 1e-10, "maxiter": 1000})
+    sa, sb = opt.x
+    return {"a": a, "b": b, "scipy_a": float(sa), "scipy_b": float(sb),
+            "rel_err": max(abs(a - sa) / max(1.0, abs(sa)),
+                           abs(b - sb) / max(1.0, abs(sb))),
+            "nll": nll(np.array([a, b])), "scipy_nll": float(opt.fun)}
+
+
+def launch_counts() -> dict:
+    """The hand kernels' launch counters."""
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
+
+    return {"K1": fk.launches, "K2a": ck.ccl_label.launches,
+            "K2b": ck.ccl_label_seeded.launches,
+            "K3": cpk.compact_rows.launches,
+            "K4": hk.sht_accumulate.launches,
+            "K5": ls.strip_label_counts.launches}
+
+
+def reset_launch_counts() -> None:
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import hough_kernel as hk
+    from compv_tpu_torch.ops.kernels import label_stats as ls
+
+    fk.launches = 0
+    for fn in (ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows,
+               hk.sht_accumulate, ls.strip_label_counts):
+        fn.launches = 0
+
+
+def phase17_slice4(dev, scene: np.ndarray) -> dict:
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    inputs = bench_inputs(scene)
+    rows = slice4_image_rows(inputs)
+    out = {"image_rows": {}}
+    for name, (fn, args, bar) in rows.items():
+        got = fn(*to_dev(args, dev))
+        want = fn(*to_dev(args, "cpu"))
+        if bar == "exact":
+            check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                  f"{name}: card != CPU")
+            out["image_rows"][name] = "exact"
+        else:
+            err = rel_err(got, want)
+            check(err <= bar, f"{name}: card vs CPU {err} > {bar}")
+            out["image_rows"][name] = {"rel_err": err, "bar": bar}
+    out["goldens_on_card"] = slice4_goldens(dev)
+    out["math"] = slice4_math(dev, scene)
+    out["hog_720p"] = hog_card_vs_cpu(dev, scene)
+    cls = hog_classifier(dev, scene)
+    out["classifier"] = cls["res"]
+    torch.cuda.synchronize()
+    out["hand_kernel_launches"] = launch_counts()
+    check(not any(out["hand_kernel_launches"].values()),
+          f"slice 4 launched a hand kernel: {out['hand_kernel_launches']}")
+    emit({"phase": 17, **out,
+          "bars": "image rows bit-equal to the CPU (integral_sq and the f32 "
+                  "integral within 1e-6 relative), the four md5 goldens on "
+                  "the card, HOG within the tests' tolerances of the CPU "
+                  "and two card runs identical, classifier counts within "
+                  "2 of the reference's and labels as the CPU's wherever "
+                  "|decision| >= 1e-3, platt_fit within 1e-4 of scipy's "
+                  "minimum; no hand kernel on this path"})
+    return {"inputs": inputs, "rows": rows, **cls}
+
+
+def phase18_slice4_times(dev, card: str, s4: dict) -> dict:
+    from compv_tpu_torch.features.hog import HogConfig, hog_descriptor
+    from compv_tpu_torch.image.integral import integral
+    from compv_tpu_torch.math.pca import pca_compute
+    from compv_tpu_torch.ml.knn import knn_build, knn_search
+    from compv_tpu_torch.ml.svm import SvmConfig, svm_decision, svm_train
+
+    times = {}
+
+    # 20 profiled calls a row: a window of the full script can come back
+    # ~22 device events short (seen after phase 16's windows), which is
+    # most of a 10-event row's single call
+    def row(name, fn, reps, calls=20):
+        ms = cuda_ms(fn, reps=reps)
+        times[name] = {"ms": ms, **device_profile(fn, ms, calls)}
+
+    bench_rows = ("rgb24_to_gray", "i420_to_rgb24", "rgb24_to_hsv",
+                  "yuv420p_to_hsv", "split_rgb", "hist_equalize",
+                  "integral_sq", "adaptive_thresh_5x5",
+                  "wolf_binarization_41x41", "morph_erode_3x3",
+                  "morph_close_3x3")
+    for name in bench_rows:
+        fn, args, _ = s4["rows"][name]
+        args = to_dev(args, dev)
+        if name == "integral_sq":    # bench.py's row: both tables
+            row(name, lambda a=args: (integral(a[0], torch.float32),
+                                      fn(*a)), 20)
+        else:
+            row(name, lambda f=fn, a=args: f(*a), 20)
+    gray = torch.from_numpy(s4["inputs"]["gray"]).to(dev)
+    row("hog_8x8_l2hys", lambda: hog_descriptor(gray, HogConfig()), 10)
+    x, y, windows = s4["x"], s4["y"], s4["windows"]
+    row("svm_train_rbf_2048", lambda: svm_train(x, y, SvmConfig()), 3, 3)
+    row("svm_decision_rbf_11475", lambda: svm_decision(s4["rbf"], windows), 5)
+    row("pca_compute_11475x3780_64", lambda: pca_compute(windows, 64), 2, 2)
+    index = knn_build(s4["proj_x"])
+    row("knn_search_11475_k5", lambda: knn_search(index, s4["proj"], 5), 10)
+    emit({"phase": 18, "card": card, **times,
+          "timing": "median of CUDA-event timings after two warm-up calls; "
+                    "busy, idle share and launches by torch.profiler, mean "
+                    "of 20 profiled calls (3 for svm_train, 2 for "
+                    "pca_compute)"})
+    return times
+
+
 def text_kernel_times(package_root: str) -> int:
     """From the package under ``package_root``: K2a, K2b (mean and per
     level over the text ladder), K3's wrapper and K5 at the text scene's
@@ -2773,6 +3313,8 @@ def main() -> int:
     phase14_sfm_times(dev, card)
     s3 = phase15_slice3(dev, scene)
     phase16_slice3_times(card, s3)
+    s4 = phase17_slice4(dev, scene)
+    phase18_slice4_times(dev, card, s4)
     times.update(k45_times)
     bounds.update(k45_bounds)
     launches["K1"] = k1_launches

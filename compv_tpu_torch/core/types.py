@@ -11,7 +11,13 @@ import torch
 
 from compv_tpu_torch.ops.topk import select_top_k
 
-__all__ = ["Keypoints", "Lines", "Matches"]
+__all__ = ["Keypoints", "Lines", "Matches", "is_integer_dtype"]
+
+
+def is_integer_dtype(dtype: torch.dtype) -> bool:
+    """``jnp.issubdtype(dtype, jnp.integer)``: an integer dtype, not bool."""
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
 
 
 class Keypoints(NamedTuple):

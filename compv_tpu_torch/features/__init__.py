@@ -21,3 +21,6 @@ from compv_tpu_torch.features.hough import (  # noqa: F401
     HoughKhtConfig, HoughShtConfig, hough_kht, hough_lines_to_cartesian,
     hough_sht, hough_sht_stats,
 )
+from compv_tpu_torch.features.hog import (  # noqa: F401
+    HogConfig, gradient_fast, hog_descriptor,
+)

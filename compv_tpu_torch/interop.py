@@ -3,8 +3,9 @@ package.
 
 No function here imports ``compv_tpu`` (its package init pulls in JAX):
 configs are matched by class name and copied field by field, and
-keypoints, results, BA problems and state (label maps, seeded ``init``
-maps, an SfM checkpoint's state) travel as numpy arrays.
+keypoints, results, BA problems, state (label maps, seeded ``init`` maps,
+an SfM checkpoint's state) and trained models (SVMs, PCA, KNN and ANN
+indexes) travel as numpy arrays.
 """
 from __future__ import annotations
 
@@ -25,10 +26,15 @@ from compv_tpu_torch.core.types import Keypoints, Lines
 from compv_tpu_torch.features.canny import CannyConfig
 from compv_tpu_torch.features.ccl import CclConfig, CclResult
 from compv_tpu_torch.features.fast import FastConfig
+from compv_tpu_torch.features.hog import HogConfig
 from compv_tpu_torch.features.hough import HoughKhtConfig, HoughShtConfig
 from compv_tpu_torch.features.mser import MserConfig, MserResult
 from compv_tpu_torch.features.orb import OrbConfig
 from compv_tpu_torch.math.fit import LineFit, ParabolaFit
+from compv_tpu_torch.math.pca import PcaModel
+from compv_tpu_torch.ml.knn import AnnConfig, AnnIndex, KnnIndex
+from compv_tpu_torch.ml.svm import (MultiClassSvm, ProbSvmModel, SvmConfig,
+                                    SvmModel)
 from compv_tpu_torch.slam.ba import BAConfig, BAProblem
 from compv_tpu_torch.slam.ba_schur import SchurConfig
 from compv_tpu_torch.slam.frontend import FrontendConfig
@@ -40,7 +46,7 @@ __all__ = ["config_from_reference", "keypoints_from_numpy",
            "keypoints_to_numpy", "result_from_numpy", "result_to_numpy",
            "ba_problem_from_numpy", "ba_problem_to_numpy",
            "sfm_state_from_numpy", "pose_graph_from_numpy",
-           "pose_graph_to_numpy"]
+           "pose_graph_to_numpy", "model_from_numpy", "model_to_numpy"]
 
 _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      HomographyConfig, FastConfig,
@@ -50,7 +56,8 @@ _CONFIGS = {c.__name__: c for c in (FrontendConfig, OrbConfig,
                                      PnpConfig, BAConfig, SchurConfig,
                                      SfmConfig, CalibrationConfig, LMConfig,
                                      RansacConfig, PoseGraphConfig,
-                                     PlanarTrackerConfig)}
+                                     PlanarTrackerConfig, HogConfig,
+                                     SvmConfig, AnnConfig)}
 
 _DTYPES = {"level": torch.int32, "valid": torch.bool}
 
@@ -75,9 +82,9 @@ def config_from_reference(cfg):
     OrbConfig, HomographyConfig, FastConfig, CclConfig, MserConfig,
     CannyConfig, HoughShtConfig, HoughKhtConfig, CheckerboardConfig,
     EssentialConfig, PnpConfig, BAConfig, SchurConfig, SfmConfig,
-    CalibrationConfig, LMConfig, RansacConfig, PoseGraphConfig or
-    PlanarTrackerConfig), built field by field; nested configs are
-    converted too."""
+    CalibrationConfig, LMConfig, RansacConfig, PoseGraphConfig,
+    PlanarTrackerConfig, HogConfig, SvmConfig or AnnConfig), built field by
+    field; nested configs are converted too."""
     cls = _CONFIGS.get(type(cfg).__name__)
     if cls is None or not dataclasses.is_dataclass(cfg):
         raise TypeError(f"no port counterpart for {type(cfg).__name__}")
@@ -192,3 +199,62 @@ def pose_graph_to_numpy(graph: PoseGraph) -> dict[str, np.ndarray]:
     """{field: numpy array} of a port ``PoseGraph``."""
     return {name: getattr(graph, name).detach().cpu().numpy()
             for name in PoseGraph._fields}
+
+
+# tensor fields of the trained models, by model type; other fields (the
+# kernel flag, the metric's name) are copied as they are
+_MODEL_DTYPES = {
+    SvmModel: {"support": torch.float32, "alpha_y": torch.float32,
+               "bias": torch.float32, "gamma": torch.float32},
+    PcaModel: {"mean": torch.float32, "vectors": torch.float32,
+               "values": torch.float32},
+    KnnIndex: {"vectors": torch.float32},
+    AnnIndex: {"vectors": torch.float32, "planes": torch.float32,
+               "codes": torch.int32},
+}
+
+
+def model_from_numpy(cls, model, device=None):
+    """A port ``SvmModel``, ``ProbSvmModel``, ``MultiClassSvm``,
+    ``PcaModel``, ``KnnIndex`` or ``AnnIndex`` (``cls``) from anything with
+    its fields as attributes (the ``compv_tpu`` model, trained there, or a
+    dict of arrays), on ``device``: decisions, projections and searches
+    then run on the reference's weights (an ``AnnIndex`` with its
+    hyperplanes)."""
+    get = model.__getitem__ if isinstance(model, dict) else (
+        lambda k: getattr(model, k))
+    if cls is ProbSvmModel:
+        return ProbSvmModel(
+            model=model_from_numpy(SvmModel, get("model"), device),
+            a=torch.as_tensor(np.array(get("a")), dtype=torch.float32,
+                              device=device),
+            b=torch.as_tensor(np.array(get("b")), dtype=torch.float32,
+                              device=device))
+    if cls is MultiClassSvm:
+        return MultiClassSvm(
+            models=[model_from_numpy(SvmModel, m, device)
+                    for m in get("models")],
+            classes=torch.as_tensor(np.array(get("classes")), device=device))
+    if cls not in _MODEL_DTYPES:
+        raise TypeError(f"no numpy conversion for {cls.__name__}")
+    dtypes = _MODEL_DTYPES[cls]
+    return cls(*[
+        torch.as_tensor(np.array(get(name)), dtype=dtypes[name],
+                        device=device) if name in dtypes else get(name)
+        for name in cls._fields])
+
+
+def model_to_numpy(model) -> dict:
+    """{field: numpy array} of a model that ``model_from_numpy`` takes
+    (nested models as dicts, ``MultiClassSvm.models`` as a list of them;
+    the kernel flag and the metric's name as they are)."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        if isinstance(v, tuple):
+            return model_to_numpy(v)
+        if isinstance(v, list):
+            return [conv(m) for m in v]
+        return v
+
+    return {name: conv(v) for name, v in zip(model._fields, model)}

@@ -2,8 +2,9 @@
 the row compactor (K3), the SHT accumulator (K4) and the strip label
 counter (K5), each against its plain twin, exact, and the port on CUDA
 against the port on CPU (slice 3 too: calibration, the pose graph, planar
-tracking's K1 launches, the Q0.16 blur, scaling and rotate_fast). Every test needs an NVIDIA GPU
-and nvcc, and skips without them.
+tracking's K1 launches, the Q0.16 blur, scaling and rotate_fast; slice 4:
+HOG's determinism, the image ops, saturating arithmetic, SVM, PCA and
+KNN). Every test needs an NVIDIA GPU and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
 without them; from the repository root:
@@ -985,3 +986,105 @@ def test_fits_cuda_match_cpu(dev):
         par_pts, threshold=0.8)
     assert float((card.abc.cpu() - cpu.abc).abs().max()) <= 1e-3 * float(
         cpu.abc.abs().max())
+
+
+# ---------------------------------------------------------------- slice 4
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear", "bilinear_lut"])
+def test_hog_cuda_deterministic_and_matches_cpu(dev, interp):
+    """HOG at 720x1282: two card runs bit-identical (cell sums over a
+    reshape, no atomics); within 2e-6 of the CPU where no pixel's vote
+    moved to another bin (counted with one-pixel cells)."""
+    from compv_tpu_torch.features.hog import HogConfig, hog_descriptor
+
+    img = torch.from_numpy(_scene(720, 1282))
+    cfg = HogConfig(interp=interp)
+    a = hog_descriptor(img.to(dev), cfg)
+    b = hog_descriptor(img.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    one = HogConfig(cell_size=1, block_size=1, norm="none", interp=interp)
+    pa, pb = hog_descriptor(img.to(dev), one).cpu(), hog_descriptor(img, one)
+    mag = pb.abs().sum(-1).clamp_min(1.0)
+    moved = int(((pa - pb).abs() > 1e-4 * mag[..., None]).any(-1).sum())
+    assert moved <= 16
+    if moved == 0:
+        assert float((a.cpu() - hog_descriptor(img, cfg)).abs().max()) <= 2e-6
+
+
+def test_slice4_image_ops_cuda_equal_cpu(dev):
+    """Color, YUV, 565, HSV, morphology, integer integral images, LUT,
+    equalization, projections, adaptive and Wolf thresholds: bit-equal on
+    the card and the CPU; the f32 integral of squares within 1e-6."""
+    from compv_tpu_torch.image import color, histogram, morph, threshold
+    from compv_tpu_torch.image.integral import integral, integral_squared
+
+    gray = torch.from_numpy(_scene(240, 322))
+    rgb = torch.stack([gray, gray.roll(3, 0), gray.roll(7, 1)], -1)
+    chroma = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 255, (2, 120, 161), dtype=np.uint8))
+    cases = [
+        (color.rgb_to_hsv, (rgb,)), (color.rgb_to_hsl, (rgb,)),
+        (color.bgr_to_gray, (rgb,)), (color.rgb_to_rgb565, (rgb,)),
+        (lambda x: color.rgb565_to_rgb(color.rgb_to_rgb565(x)), (rgb,)),
+        (lambda x: torch.stack(color.rgb_to_yuv444(x)), (rgb,)),
+        (color.i420_to_rgb, (gray, chroma[0], chroma[1])),
+        (color.nv12_to_rgb, (gray, chroma.permute(1, 2, 0).contiguous())),
+        (histogram.equalize, (gray,)), (histogram.projection_x, (gray,)),
+        (lambda x: histogram.apply_lut256(x, torch.arange(256.0).flip(0)
+                                          .to(x.device)), (gray,)),
+        (integral, (gray,)), (morph.erode, (gray,)), (morph.close_, (gray,)),
+        (morph.black_hat, (gray,)),
+        (lambda x: threshold.threshold_adaptive(x, 5, 21), (gray,)),
+        (lambda x: threshold.threshold_wolf(x, 41), (gray,)),
+    ]
+    for fn, args in cases:
+        got = fn(*[a.to(dev) for a in args])
+        want = fn(*args)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    sq = integral_squared(gray.to(dev)).cpu()
+    want = integral_squared(gray)
+    assert float((sq - want).abs().max()) <= 1e-6 * float(want.max())
+
+
+def test_saturating_ops_cuda_equal_cpu(dev):
+    from compv_tpu_torch.math import ops
+
+    rs = np.random.default_rng(2)
+    for dtype, hi in ((np.uint8, 256), (np.int16, 32768), (np.uint16, 65536),
+                      (np.int32, 2 ** 31), (np.uint32, 2 ** 32)):
+        lo = 0 if np.iinfo(dtype).min == 0 else -hi
+        a = torch.from_numpy(rs.integers(lo, hi, 4096).astype(dtype))
+        b = torch.from_numpy(rs.integers(lo, hi, 4096).astype(dtype))
+        for op in (ops.add, ops.sub, ops.mul_elementwise):
+            got = op(a.to(dev), b.to(dev))
+            assert got.dtype == a.dtype and torch.equal(got.cpu(), op(a, b))
+
+
+def test_svm_pca_knn_cuda_match_cpu(dev):
+    """A 200-point RBF SVM: labels equal where |decision| >= 1e-3; PCA
+    eigenvalues within 1e-4; KNN indices equal."""
+    from compv_tpu_torch.math.pca import pca_compute, pca_project
+    from compv_tpu_torch.ml.knn import knn_build, knn_search
+    from compv_tpu_torch.ml.svm import (SvmConfig, platt_fit, svm_decision,
+                                        svm_train)
+
+    rs = np.random.default_rng(3)
+    y = torch.from_numpy(np.where(rs.random(200) < 0.5, 1.0, -1.0)
+                         .astype(np.float32))
+    x = torch.from_numpy(rs.normal(0, 1, (200, 16)).astype(np.float32)) \
+        + y[:, None]
+    m, mc = svm_train(x.to(dev), y.to(dev), SvmConfig()), svm_train(
+        x, y, SvmConfig())
+    dec, dec_cpu = svm_decision(m, x.to(dev)).cpu(), svm_decision(mc, x)
+    sure = dec_cpu.abs() >= 1e-3
+    assert torch.equal((dec >= 0)[sure], (dec_cpu >= 0)[sure])
+    a, b = platt_fit(dec.to(dev), y.to(dev))
+    ac, bc = platt_fit(dec_cpu, y)
+    assert abs(float(a) - float(ac)) <= 1e-3 * max(1.0, abs(float(ac)))
+    p, pc = pca_compute(x.to(dev), 4), pca_compute(x, 4)
+    assert float((p.values.cpu() - pc.values).abs().max()) <= 1e-4 * float(
+        pc.values.max())
+    q = pca_project(pc, x)
+    idx = knn_search(knn_build(q.to(dev)), q.to(dev), 3)[0].cpu()
+    assert torch.equal(idx, knn_search(knn_build(q), q, 3)[0])

@@ -195,6 +195,13 @@ def test_port_imports_neither_jax_nor_reference():
     for d, _, names in os.walk(os.path.join(_ROOT, "compv_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    # the slice-4 modules are among them
+    for rel in ("math/matrix.py", "math/ops.py", "math/pca.py",
+                "image/integral.py", "image/morph.py", "image/color.py",
+                "image/histogram.py", "image/threshold.py",
+                "features/hog.py", "ml/knn.py", "ml/svm.py",
+                "ml/__init__.py"):
+        assert os.path.join(_ROOT, "compv_tpu_torch", rel) in files, rel
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
