@@ -4,7 +4,9 @@ counter (K5), each against its plain twin, exact, and the port on CUDA
 against the port on CPU (slice 3 too: calibration, the pose graph, planar
 tracking's K1 launches, the Q0.16 blur, scaling and rotate_fast; slice 4:
 HOG's determinism, the image ops, saturating arithmetic, SVM, PCA and
-KNN). Every test needs an NVIDIA GPU and nvcc, and skips without them.
+KNN; slice 5: the Timer's wait, the trace file, memory statistics,
+drawing from results on the card, frames uploaded from recycled staging
+buffers). Every test needs an NVIDIA GPU and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
 without them; from the repository root:
@@ -1088,3 +1090,100 @@ def test_svm_pca_knn_cuda_match_cpu(dev):
     q = pca_project(pc, x)
     idx = knn_search(knn_build(q.to(dev)), q.to(dev), 3)[0].cpu()
     assert torch.equal(idx, knn_search(knn_build(q), q, 3)[0])
+
+
+# ---------------------------------------------------------------- slice 5
+
+def test_timer_block_on_synchronizes_a_cuda_result(dev):
+    from compv_tpu_torch.profiling import Timer
+
+    a = torch.randn(2048, 2048, device=dev)
+    t = Timer()
+    out = []
+    with t.section("matmuls", block_on=out):
+        x = a
+        for _ in range(20):
+            x = x @ a
+        out.append({"x": x})
+    assert torch.cuda.current_stream(dev).query()   # nothing left queued
+    assert t.counts["matmuls"] == 1
+
+
+def test_trace_writes_a_file_with_cuda_kernels(dev, tmp_path):
+    import json
+    import os
+
+    from compv_tpu_torch.profiling import trace
+
+    img = torch.from_numpy(_scene(240, 320)).to(dev)
+    fast_kernel.fast_strengths_and_nms(img, 20, 9)
+    torch.cuda.synchronize()
+    kernels = []
+    for _ in range(3):      # a window can come back without device events
+        with trace(str(tmp_path)) as prof:
+            for _ in range(30):
+                fast_kernel.fast_strengths_and_nms(img, 20, 9)
+        assert os.path.dirname(prof.trace_path) == str(tmp_path)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    if not kernels:
+        pytest.skip("torch.profiler recorded no device event in 3 windows")
+    assert any("fast_kernel" in name for name in kernels), kernels[:20]
+
+
+def test_device_memory_stats_on_the_card(dev):
+    from compv_tpu_torch.profiling import device_memory_stats
+
+    keep = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    assert torch.cuda.get_device_name(0) in stats[0]["device"]
+    assert 0 < stats[0]["bytes_in_use"] < stats[0]["bytes_limit"]
+    del keep
+
+
+def test_draw_from_cuda_results_equals_draw_from_their_cpu_copies(dev):
+    from compv_tpu_torch.matchers.bruteforce import knn_match, ratio_test
+    from compv_tpu_torch.viz import draw_keypoints, draw_matches
+
+    cfg = OrbConfig(max_features=500, levels=4)
+    a = torch.from_numpy(_scene(240, 320)).to(dev)
+    b = torch.roll(a, (3, 5), (0, 1))
+    r1, r2 = orb_detect_describe(a, cfg), orb_detect_describe(b, cfg)
+    m = knn_match(r1.descriptors, r2.descriptors, r1.keypoints.valid,
+                  r2.keypoints.valid, k=2)
+    ok = ratio_test(m, 0.67)
+
+    def cpu(tree):
+        return type(tree)(*[t.cpu() for t in tree])
+
+    got = draw_keypoints(a, r1.keypoints)
+    assert np.array_equal(got, draw_keypoints(a.cpu(), cpu(r1.keypoints)))
+    got = draw_matches(a, r1.keypoints, b, r2.keypoints, m, ok)
+    want = draw_matches(a.cpu().numpy(), cpu(r1.keypoints), b.cpu().numpy(),
+                        cpu(r2.keypoints), cpu(m), ok.cpu())
+    assert got.shape == (240, 640, 3) and np.array_equal(got, want)
+
+
+def test_raw_reader_with_reused_buffers_uploads_every_frame(dev, tmp_path):
+    from compv_tpu_torch.io import RawYuvReader, VideoWriterRaw
+    from compv_tpu_torch.native_rt import native_available
+
+    assert native_available()
+    rs = np.random.default_rng(4)
+    frames = rs.integers(0, 256, (12, 720 * 1282 * 3 // 2), dtype=np.uint8)
+    path = tmp_path / "seq_1282x720.yuv"
+    w = VideoWriterRaw(str(path))
+    for f in frames:
+        w.write(f)
+    w.close()
+    got = []
+    for y in RawYuvReader(str(path), gray=False, reuse_buffers=True):
+        got.append(torch.from_numpy(y).to(dev))     # before the recycle
+    assert len(got) == 12
+    for g, f in zip(got, frames):
+        want = f[:720 * 1282].reshape(720, 1282)
+        assert np.array_equal(g.cpu().numpy(), want)

@@ -195,12 +195,16 @@ def test_port_imports_neither_jax_nor_reference():
     for d, _, names in os.walk(os.path.join(_ROOT, "compv_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    # the slice-4 modules are among them
+    # the slice-4 and slice-5 modules are among them
     for rel in ("math/matrix.py", "math/ops.py", "math/pca.py",
                 "image/integral.py", "image/morph.py", "image/color.py",
                 "image/histogram.py", "image/threshold.py",
                 "features/hog.py", "ml/knn.py", "ml/svm.py",
-                "ml/__init__.py"):
+                "ml/__init__.py", "__init__.py", "config.py", "registry.py",
+                "profiling.py", "native_rt.py", "io/__init__.py",
+                "io/image_io.py", "io/exif.py", "io/video.py",
+                "io/camera.py", "viz/__init__.py", "viz/text.py",
+                "viz/draw.py", "viz/stream.py"):
         assert os.path.join(_ROOT, "compv_tpu_torch", rel) in files, rel
     for path in files:
         for mod in _imported_modules(path):
