@@ -20,6 +20,15 @@ steps whose reduced system failed to factor or held a non-finite entry;
 
     python3 chip_smoke.py --sfm-128 [--package-root DIR]
 
+With --distributed it only runs phase 21, after the 128-frame run (with
+its resume) whose checkpoint phase 21 resumes; with --trace-probe it only
+counts the K1 kernels that torch.profiler windows and profiling.trace
+windows hold against K1's launch counter (1 and 30 launches a window, in
+a fresh process and after a load of other work):
+
+    python3 chip_smoke.py --distributed
+    python3 chip_smoke.py --trace-probe
+
 Phases, each printing its lines before the last:
   1. device and build: the card's name and power limit, the five kernel
      sources built in parallel (one nvcc each), their ptxas lines;
@@ -182,7 +191,22 @@ Phases, each printing its lines before the last:
  20. times of the two demo paths: ms a frame by Timer stage (read, upload,
      match_pair, ORB + KNN for the drawing, draw, write; upload + ORB and
      draw for the live loop), the live loop's frames/s, and device busy,
-     launches and idle share under torch.profiler over 4 frames of each.
+     launches and idle share under torch.profiler over 4 frames of each;
+ 21. slice 6, the chain of examples/distributed_sfm.py on two ranks
+     spawned on the card (gloo, every tensor staged through host memory;
+     nccl, one rank a card, where there are two cards or more), the
+     kernels built once by this process: sharded_orb_detect on phase 19's
+     32 frames of 720x1282 at OrbConfig() (K1 launched on each rank; each
+     frame bit-equal to orb_detect_describe here), sharded_all_pairs_match
+     and ring_all_pairs_match (bit-equal to the single-process (32, 32)
+     matrix, zero diagonal), the psum, reduce-scatter and Schur BA steps
+     at 256 cameras / 20,000 landmarks / 100,000 observations (seed 11),
+     each twice and bit-identical, held to the single-process step by the
+     reference's tolerances (the Schur step below half the cost), and
+     resume_sfm of phase 13's 128-frame checkpoint on the two ranks, held
+     to phase 13's resume bar and sfm_128.json's; each stage's time
+     between barriers and the bytes staged. A rank that fails fails the
+     script.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -3360,8 +3384,10 @@ def same_tree(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
                 and torch.equal(a, b))
-    if isinstance(a, tuple):
+    if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
     return a == b
 
 
@@ -3790,6 +3816,315 @@ def phase20_slice5_times(card: str, s5: dict) -> dict:
     return out
 
 
+DIST_FRAMES = 32          # phase 20's recording: the scene rolled by (2t, 3t)
+DIST_RANKS = 2
+
+
+def dist_ba_problem(dev):
+    """tests/test_ba.py:254-287's scene at production scale: 256 cameras,
+    20,000 landmarks, 100,000 observations (seed 11), observed at their
+    true projections, landmarks then perturbed by 0.01."""
+    from compv_tpu_torch.slam.ba import BAProblem, project_points
+
+    rs = np.random.default_rng(11)
+    f, l, o = 256, 20000, 100000
+    cams = rs.normal(0, 0.05, (f, 6)).astype(np.float32)
+    cams[:, 5] = 0.0
+    lms = (rs.uniform(-2, 2, (l, 3)) + [0, 0, 6.0]).astype(np.float32)
+    intr = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
+    ci = rs.integers(0, f, o).astype(np.int32)
+    li = rs.integers(0, l, o).astype(np.int32)
+    uv = project_points(*[torch.from_numpy(a).to(dev)
+                          for a in (cams, lms, intr, ci, li)])
+    lms_n = lms + rs.normal(0, 0.01, lms.shape).astype(np.float32)
+    return BAProblem(*[torch.from_numpy(a).to(dev)
+                       for a in (cams, lms_n, intr, ci, li)],
+                     uv, torch.ones(o, dtype=torch.bool, device=dev))
+
+
+def rank_phase21(mesh, frames, prob, k_schur, checkpoint):
+    """One rank of phase 21: the distributed chain of
+    examples/distributed_sfm.py on ``mesh`` (its stages timed between
+    barriers), each BA step twice. Runs in a spawned process."""
+    import torch.distributed as dist
+
+    from compv_tpu_torch.features.orb import OrbConfig
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.parallel import _collectives, sharded
+    from compv_tpu_torch.slam import sfm as ts
+    from compv_tpu_torch.slam.ba import BAConfig
+    from compv_tpu_torch.slam.ba_schur import SchurConfig
+
+    torch.cuda.set_device(mesh.device)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        staged, k1 = _collectives.staged_bytes, fk.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        stages[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                        "event_ms": start.elapsed_time(end),
+                        "staged_bytes": _collectives.staged_bytes - staged,
+                        "k1_launches": fk.launches - k1}
+        return out
+
+    fk.launches = 0
+    imgs = torch.from_numpy(frames)
+    orb = stage("sharded_orb_detect",
+                lambda: sharded.sharded_orb_detect(imgs, mesh, OrbConfig()))
+    desc, valid = orb.descriptors, orb.keypoints.valid
+    all_pairs = stage("sharded_all_pairs_match",
+                      lambda: sharded.sharded_all_pairs_match(desc, valid,
+                                                              mesh))
+    ring = stage("ring_all_pairs_match",
+                 lambda: sharded.ring_all_pairs_match(desc, valid, mesh))
+    lam = torch.tensor(1e-3, device=mesh.device)
+    steps = {"psum": sharded.make_distributed_ba_step(mesh, BAConfig()),
+             "reduce_scatter": sharded.make_distributed_ba_step(
+                 mesh, BAConfig(), "reduce_scatter"),
+             "schur": sharded.make_distributed_schur_step(
+                 mesh, SchurConfig(), k_schur)}
+    runs = {}
+    for name, step in steps.items():
+        runs[name] = []
+        for i in range(2):
+            p, lam1, cost = stage(f"ba_{name}_{i}", lambda: step(prob, lam))
+            runs[name].append((p.cameras, p.landmarks, lam1, cost))
+    resumed = stage("resume_sfm", lambda: ts.resume_sfm(
+        checkpoint, sfm_128_config(), mesh=mesh))
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": torch.cuda.get_device_name(mesh.device),
+            "orb": orb, "all_pairs": all_pairs, "ring": ring, "steps": runs,
+            "resumed": resumed, "stages": stages, "k1": fk.launches}
+
+
+def phase21_distributed(dev, card: str, scene: np.ndarray, sfm: dict) -> dict:
+    """The distributed chain on two ranks of one card (gloo, staged through
+    host memory; nccl, one rank a card, where there are two cards or
+    more), each held to the single-process result on the card."""
+    from compv_tpu_torch.features.orb import OrbConfig, orb_detect_describe
+    from compv_tpu_torch.parallel import launch, make_mesh, sharded
+    from compv_tpu_torch.parallel.distributed import choose_backend
+    from compv_tpu_torch.slam import sfm as ts
+    from compv_tpu_torch.slam.ba import BAConfig, ba_residuals, ba_step
+    from compv_tpu_torch.slam.ba_schur import (SchurConfig, ba_step_schur,
+                                               max_obs_per_landmark)
+    from compv_tpu_torch.slam.evaluate import ate_rmse
+
+    t_phase = time.perf_counter()
+    frames = np.stack([np.roll(scene, (2 * t, 3 * t), (0, 1))
+                       for t in range(DIST_FRAMES)])
+    ckpt = os.path.join(ROOT, "build", "sfm_128_checkpoints", "step_128.pt")
+    check(os.path.exists(ckpt), f"no sfm_128 checkpoint at {ckpt}")
+    prob = dist_ba_problem(dev)
+    k = max_obs_per_landmark(prob.lm_idx, prob.valid,
+                             prob.landmarks.shape[0])
+    lam = torch.tensor(1e-3, device=dev)
+
+    # single-process results on the card
+    t0 = time.perf_counter()
+    local = [orb_detect_describe(torch.from_numpy(f).to(dev), OrbConfig())
+             for f in frames]
+    m1 = make_mesh(1, device=dev)
+    local_pairs = sharded.sharded_all_pairs_match(
+        torch.stack([r.descriptors for r in local]),
+        torch.stack([r.keypoints.valid for r in local]), m1)
+    local_ba = ba_step(prob, lam, BAConfig())
+    local_schur = ba_step_schur(prob, lam, SchurConfig(), max_obs_per_lm=k)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+
+    backend = choose_backend(DIST_RANKS)
+    # the ranks share the card with this process: hand back what its
+    # allocator caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(rank_phase21, DIST_RANKS,
+                         (frames, type(prob)(*[t.cpu() for t in prob]), k,
+                          ckpt), timeout=900)
+    spawn_s = time.perf_counter() - t0
+
+    # every rank: the same backend, world, and bits
+    for r, out in enumerate(ranks):
+        check(out["backend"] == backend and out["world"] == DIST_RANKS,
+              f"rank {r}: {out['backend']} of {out['world']}")
+        check(out["stages"]["sharded_orb_detect"]["k1_launches"] > 0,
+              f"rank {r}: K1 not launched by sharded_orb_detect")
+        check(same_tree(out["orb"], ranks[0]["orb"]) and same_tree(
+            out["steps"], ranks[0]["steps"]), f"rank {r} != rank 0")
+    out = ranks[0]
+    kp, desc = out["orb"]
+    for t, want in enumerate(local):
+        check(same_tree(tuple(f[t] for f in kp), to_cpu(want.keypoints))
+              and same_tree(desc[t], want.descriptors.cpu()),
+              f"frame {t}: sharded_orb_detect != orb_detect_describe")
+    local_pairs = local_pairs.cpu()
+    check(torch.equal(out["all_pairs"], local_pairs)
+          and torch.equal(out["ring"], local_pairs)
+          and out["all_pairs"].shape == (DIST_FRAMES, DIST_FRAMES)
+          and not torch.diagonal(local_pairs).any(),
+          "all-pairs / ring != the single-process matrix, or a non-zero "
+          "diagonal")
+
+    # BA: twice identical; against the single-process step
+    steps = out["steps"]
+    for name, runs in steps.items():
+        check(same_tree(runs[0], runs[1]), f"ba {name}: two runs differ")
+
+    def close(cams, want, rtol, atol):
+        return bool(np.allclose(cams.numpy(), want.cpu().numpy(), rtol=rtol,
+                                atol=atol))
+
+    cams, _, _, cost = steps["psum"][0]
+    lp, _, lcost = local_ba
+    check(abs(float(cost) - float(lcost)) <= 1e-4 * abs(float(lcost))
+          and close(cams, lp.cameras, 2e-3, 2e-4),
+          "psum step != the single-process step")
+    rs_cams, _, _, rs_cost = steps["reduce_scatter"][0]
+    check(abs(float(rs_cost) - float(cost)) <= 1e-5 * abs(float(cost))
+          and close(rs_cams, cams, 5e-3, 5e-4),
+          "reduce_scatter step != the psum step")
+    s_cams, s_lms, _, s_cost = steps["schur"][0]
+    sp, _, scost = local_schur
+
+    def cost_of(cams, lms):
+        r = ba_residuals(cams.to(dev), lms.to(dev), prob)
+        return float((r * r).sum())
+
+    s_after = cost_of(s_cams, s_lms)
+    l_after = cost_of(sp.cameras, sp.landmarks)
+    check(abs(float(s_cost) - float(scost)) <= 1e-4 * abs(float(scost))
+          and close(s_cams, sp.cameras, 2e-2, 1e-3)
+          and abs(np.sqrt(s_after) - np.sqrt(l_after))
+          <= 0.05 * np.sqrt(l_after) + 1e-3
+          and s_after < 0.5 * float(s_cost),
+          f"Schur step: cost {s_cost} -> {s_after} vs single-process "
+          f"{scost} -> {l_after}")
+
+    # resume on two ranks: phase 13's resume bar and the golden's
+    g = load_golden("sfm_128.json")
+    seq = g["sequence"]
+    _, gt, _ = ts.render_orbit_sequence(seq["n_frames"], seq["h"], seq["w"],
+                                        device=dev)
+    res = out["resumed"]
+    ate = float(ate_rmse(torch.tensor(res.positions, dtype=torch.float32),
+                         torch.tensor(gt, dtype=torch.float32)))
+    span = float(np.linalg.norm(gt[-1] - gt[0]))
+    direct = sfm["sfm_128_480p_schur"]["ate"]
+    check(ate <= max(1.5 * direct, 0.03 * span),
+          f"resume_sfm on {DIST_RANKS} ranks: ATE {ate} vs direct {direct}")
+    bars = sfm_bars(ate, res, gt, g, "sfm_128.json resumed on 2 ranks",
+                    span_pct=2.5)
+    phase_s = time.perf_counter() - t_phase
+    row = {"phase": 21, "card": card, "backend": backend,
+           "world_size": DIST_RANKS, "ranks_on": out["device"],
+           "frames": f"{DIST_FRAMES} x {scene.shape[0]}x{scene.shape[1]}, "
+                     "OrbConfig() (2,000 features, 8 levels)",
+           "ba_scene": "256 cameras, 20,000 landmarks, 100,000 "
+                       "observations, seed 11",
+           "k1_launches_by_rank": [r["stages"]["sharded_orb_detect"][
+               "k1_launches"] for r in ranks],
+           "stages_by_rank": [r["stages"] for r in ranks],
+           "staged_bytes_by_rank": [sum(s["staged_bytes"] for s in
+                                        r["stages"].values()) for r in ranks],
+           "ba": {"psum_cost": float(cost), "single_cost": float(lcost),
+                  "reduce_scatter_cost": float(rs_cost),
+                  "schur_cost_before": float(s_cost),
+                  "schur_cost_after": s_after,
+                  "single_schur_cost_after": l_after,
+                  "two_runs": "bit-identical"},
+           "resumed": {**bars, "direct_ate": direct},
+           "single_process_s": local_s, "spawn_s": spawn_s,
+           "phase_s": phase_s,
+           "timing": "stages: host clock and CUDA events between barriers "
+                     "of both ranks (each rank's own stream); spawn_s: "
+                     "spawn, group bring-up and every stage"}
+    emit(row)
+    return row
+
+def trace_probe() -> int:
+    """Windows of torch.profiler around K1 launches, each counted against
+    K1's launch counter: raw windows opened with and without a synchronize
+    before them, and profiling.trace windows, of 1 and of 30 launches, in
+    a fresh process and again after a few hundred windows and a load of
+    other work; prints, per kind, the K1 kernels each window held."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from compv_tpu_torch.features.orb import OrbConfig, orb_detect_describe
+    from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.profiling import trace
+
+    dev, card = phase1_device_and_build()
+    img = torch.from_numpy(scenes()[0]).to(dev)
+    fk.fast_strengths_and_nms(img, 20, 9)
+    torch.cuda.synchronize()
+    logdir = os.path.join(ROOT, "build", "trace_probe")
+
+    def raw(launches, sync_before, activities=(ProfilerActivity.CUDA,)):
+        if sync_before:
+            torch.cuda.synchronize()
+        with profile(activities=list(activities)) as prof:
+            for _ in range(launches):
+                fk.fast_strengths_and_nms(img, 20, 9)
+            torch.cuda.synchronize()
+        return sum("fast_kernel" in e.name()
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+    in_file = []
+
+    def traced(launches):
+        """K1 kernels the window held by trace()'s own count; what its
+        Chrome trace file names goes to in_file."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with trace(logdir) as prof:
+                for _ in range(launches):
+                    fk.fast_strengths_and_nms(img, 20, 9)
+        with open(prof.trace_path) as f:
+            in_file.append(sum(
+                e.get("cat") == "kernel" and "fast_kernel" in e.get("name", "")
+                for e in json.load(f)["traceEvents"]))
+        os.remove(prof.trace_path)
+        short = prof.shortfall.get("fast_kernel")
+        return launches if short is None else short[1]
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    for when in ("fresh", "late"):
+        for kind, fn in (("raw_no_sync_before", lambda n: raw(n, False)),
+                         ("raw_sync_before", lambda n: raw(n, True)),
+                         ("raw_cpu_cuda", lambda n: raw(n, True, (
+                             ProfilerActivity.CPU, ProfilerActivity.CUDA))),
+                         ("trace", traced)):
+            for n, windows in ((1, 100), (30, 20)):
+                in_file.clear()
+                held = [fn(n) for _ in range(windows)]
+                out[f"{when}_{kind}_{n}"] = {
+                    "windows": windows, "short": sum(h < n for h in held),
+                    "held_min": min(held), "held_total": sum(held),
+                    **({"file_short": sum(h < n for h in in_file)}
+                       if in_file else {})}
+        if when == "fresh":      # a load of other work and windows
+            for _ in range(200):
+                raw(1, True)
+            for _ in range(20):
+                orb_detect_describe(img, OrbConfig())
+            torch.cuda.synchronize()
+    out["probe_s"] = time.perf_counter() - t0
+    emit({"trace_probe": out})
+    return 0
+
 def text_kernel_times(package_root: str) -> int:
     """From the package under ``package_root``: K2a, K2b (mean and per
     level over the text ladder), K3's wrapper and K5 at the text scene's
@@ -3892,6 +4227,16 @@ def main() -> int:
         return text_kernel_times(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--trace-probe" in sys.argv[1:]:
+        sys.path.insert(0, ROOT)
+        return trace_probe()
+    if "--distributed" in sys.argv[1:]:
+        # phase 21 alone, after the 128-frame run that writes its checkpoint
+        sys.path.insert(0, ROOT)
+        dev, card = phase1_device_and_build()
+        phase21_distributed(dev, card, scenes()[0], {
+            "sfm_128_480p_schur": sfm_128_run(dev, resume=True)})
+        return 0
     if "--sfm-128" in sys.argv[1:]:
         # the 128-frame golden run alone, from the package under root
         sys.path.insert(0, root)
@@ -3929,6 +4274,7 @@ def main() -> int:
     phase20_slice5_times(card, s5)
     check(sha256_of(tracked) == tracked_sha,
           "native/libcompv_native.so changed during slice 5")
+    s6 = phase21_distributed(dev, card, scene, sfm)
     times.update(k45_times)
     bounds.update(k45_bounds)
     launches["K1"] = k1_launches
@@ -3960,7 +4306,12 @@ def main() -> int:
             "launches_per_live_frame":
                 s5["live"]["launches"]["K1"] / LIVE_FRAMES,
             "live_frame_at": "1280x720, OrbConfig(max_features=2000, "
-                             "levels=8), 60 frames"}
+                             "levels=8), 60 frames",
+            "launches_per_sharded_orb_detect_by_rank":
+                s6["k1_launches_by_rank"],
+            "sharded_orb_detect_at": f"{DIST_FRAMES} frames of 720x1282 "
+                                     f"on {DIST_RANKS} ranks of one card, "
+                                     "OrbConfig(), 8 levels"}
            if kid == "K1" else {}),
         **({"launches_in_registry_mser": s5["registry"]["mser"].get(kid, 0),
             "registry_mser_at": "one mser_detect of the 720x1282 scene "

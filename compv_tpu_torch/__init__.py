@@ -17,9 +17,9 @@ f32 products (DLT normal equations, 4-point solves, transfer errors) are
 not exact in TF32.
 
 ``import compv_tpu_torch`` imports the subpackages (``image``, ``features``,
-``matchers``, ``calib``, ``math``, ``ml``, ``io``, ``viz``, ``slam``) and
-the registry's factories, as ``compv_tpu`` does; ``parallel`` is not
-ported yet.
+``matchers``, ``calib``, ``math``, ``ml``, ``io``, ``viz``, ``slam``,
+``parallel``) and the registry's factories, as ``compv_tpu`` does; it
+starts no process group (``parallel.init_distributed`` does).
 """
 import torch
 
@@ -40,6 +40,7 @@ from compv_tpu_torch import ml  # noqa: E402,F401
 from compv_tpu_torch import io  # noqa: E402,F401
 from compv_tpu_torch import viz  # noqa: E402,F401
 from compv_tpu_torch import slam  # noqa: E402,F401
+from compv_tpu_torch import parallel  # noqa: E402,F401
 from compv_tpu_torch.registry import (  # noqa: E402,F401
     create_detector, create_edge_detector, create_matcher, list_algorithms,
 )

@@ -6,11 +6,15 @@ writes ``build/compv_tpu_torch/<name>-<hash>.so`` under the checkout, keyed
 by a hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside it as ``.log``. A missing
-``nvcc`` or a compile error raises; nothing falls back.
+``nvcc`` or a compile error raises; nothing falls back. Processes that build
+one source at once (the ranks of a process group) take turns on a lock file
+beside it (``flock``, released when its holder exits), so one compiles and
+the others load its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -55,15 +59,19 @@ def build(name: str) -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():            # built while this process waited
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                               f"{name}.cu:\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -17,9 +17,20 @@ and a sum over K. On the card an ``index_add_`` accumulates with atomics in
 an order that changes from run to run, and ``run_sfm`` takes discrete
 decisions on these sums; a gather-and-sum adds in the same order every run.
 
+The block-Jacobi preconditioner inverts the damped 3x3 landmark blocks in
+float64 and casts back, as the Schur step does: a landmark seen along one
+ray has a block of order |J|^2 along the ray and lam across it, and the
+float32 adjugate's det of such a block can round to 0 or below while the
+float64 det stays positive.
+
+Distributed (``psum_axis``, a ``parallel.mesh.FrameMesh``): each rank holds
+the replicated parameters and its own observations, and the reference's
+psums (the cost, J^T u, the preconditioner's blocks) are ordered sums over
+the ranks (``parallel._collectives.ordered_sum``), so every rank applies
+the same update. ``ba_step_reduce_scatter`` shards the CG state instead.
+
 Left out: the TPU's camera one-hot (``_cam_onehot``: the reference builds it
-only on a TPU), and the distributed forms (``psum_axis``,
-``ba_step_reduce_scatter``).
+only on a TPU).
 """
 from __future__ import annotations
 
@@ -33,7 +44,8 @@ from compv_tpu_torch.math.rotation import (matrix_to_rodrigues,
 
 __all__ = ["BAProblem", "BAConfig", "rodrigues_to_matrix",
            "matrix_to_rodrigues", "project_points", "ba_residuals",
-           "ba_solve", "ba_step", "reproj_rmse", "obs_jacobian_blocks",
+           "ba_solve", "ba_step", "ba_step_reduce_scatter", "reproj_rmse",
+           "obs_jacobian_blocks",
            "index_table", "segment_sum", "inv3x3_spd"]
 
 
@@ -267,26 +279,39 @@ def _cg(matvec, b, iters: int, precond=None):
     return x
 
 
-def ba_step(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig, *,
-            cam_mask=None, tables: _Tables | None = None):
+def _psum(mesh):
+    """x -> the ordered sum of x over ``mesh``'s ranks (identity without
+    one)."""
+    if mesh is None:
+        return lambda x: x
+    # imported here: parallel/ imports this module
+    from compv_tpu_torch.parallel._collectives import ordered_sum
+    return lambda x: ordered_sum(x, mesh)
+
+
+def ba_step(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig,
+            psum_axis=None, *, cam_mask=None, tables: _Tables | None = None):
     """One damped-GN step. Returns (new BAProblem, new lambda,
     cost_before). ``tables`` are the observation tables of ``prob``'s
     indices (``ba_solve`` builds them once per solve); without them the
-    step builds its own."""
+    step builds its own. With ``psum_axis`` (a ``FrameMesh``) ``prob``
+    holds this rank's observations, and every sum over observations is
+    summed over the ranks too."""
     f = prob.cameras.shape[0]
     l = prob.landmarks.shape[0]
     dtype, dev = prob.cameras.dtype, prob.cameras.device
+    psum = _psum(psum_axis)
     if tables is None:
         tables = _tables(prob)
     mask = _gauge_mask(f, l, cfg, dtype, dev, cam_mask)
     mc, ml = _unflatten(mask, f, l)
 
     r0, a, b, w = _linearize(prob, cfg)
-    cost = (r0 * r0).sum()
+    cost = psum((r0 * r0).sum())
 
     def jt(u):
         gc, gl = _jtu(a, b, u, tables)
-        return _flatten(gc * mc, gl * ml)
+        return psum(_flatten(gc * mc, gl * ml))
 
     def jtj_mv(v):
         vm = v * mask
@@ -299,12 +324,12 @@ def ba_step(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig, *,
         # gauge-fixed blocks are masked anyway, lam > 0 keeps each SPD
         aa = (a[:, :, :, None] * a[:, :, None, :]).sum(1).reshape(-1, 36)
         bb2 = (b[:, :, :, None] * b[:, :, None, :]).sum(1).reshape(-1, 9)
-        hcc = (segment_sum(tables.cam, aa).reshape(f, 6, 6)
+        hcc = (psum(segment_sum(tables.cam, aa)).reshape(f, 6, 6)
                + lam * torch.eye(6, dtype=dtype, device=dev))
-        hll = (segment_sum(tables.lm, bb2).reshape(l, 3, 3)
+        hll = (psum(segment_sum(tables.lm, bb2)).reshape(l, 3, 3)
                + lam * torch.eye(3, dtype=dtype, device=dev))
         minv_c = torch.linalg.inv_ex(hcc).inverse
-        minv_l = inv3x3_spd(hll)
+        minv_l = inv3x3_spd(hll.double()).to(dtype)   # module docstring
 
         def precond(r):
             rc, rl = _unflatten(r * mask, f, l)
@@ -316,16 +341,86 @@ def ba_step(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig, *,
     dx = _cg(jtj_mv, -g, cfg.cg_iterations, precond)
     x1 = _flatten(prob.cameras, prob.landmarks) + dx * mask
     cams1, lms1 = _unflatten(x1, f, l)
+    return _accept(prob, cams1, lms1, w, lam, cost, psum)
+
+
+def _accept(prob, cams1, lms1, w, lam, cost, psum):
+    """The step's accept test: the new parameters where their (frozen-IRLS)
+    cost is below ``cost``, lam halved; else the old ones, lam x 4."""
     r1 = ba_residuals(cams1, lms1, prob)
     if w is not None:
         r1 = r1 * w[:, None]
-    cost1 = (r1 * r1).sum()
+    cost1 = psum((r1 * r1).sum())
 
     improved = cost1 < cost
     cams = torch.where(improved, cams1, prob.cameras)
     lms = torch.where(improved, lms1, prob.landmarks)
     lam_new = torch.where(improved, lam * 0.5, lam * 4.0)
     return prob._replace(cameras=cams, landmarks=lms), lam_new, cost
+
+
+def ba_step_reduce_scatter(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig,
+                           axis):
+    """One damped-GN step with the CG state sharded over ``axis`` (a
+    ``FrameMesh``; ``prob`` holds this rank's observations): each rank keeps
+    its 1 / D of the padded parameter vector through CG, the full vector is
+    all-gathered before each J v, and J^T u is reduce-scattered after it;
+    the dot products and costs are ordered sums. The reference's
+    ``ba_step_reduce_scatter``: it takes no preconditioner and no camera
+    mask. Its reduction order differs from ``ba_step``'s."""
+    from compv_tpu_torch.parallel._collectives import (
+        all_gather_cat, reduce_scatter_ordered)
+    from compv_tpu_torch.parallel.mesh import RowSharding
+
+    f = prob.cameras.shape[0]
+    l = prob.landmarks.shape[0]
+    dtype, dev = prob.cameras.dtype, prob.cameras.device
+    tables = _tables(prob)
+    mask = _gauge_mask(f, l, cfg, dtype, dev)
+    mc, ml = _unflatten(mask, f, l)
+    n = f * 6 + l * 3
+    pad = -n % axis.size
+    rows = RowSharding(axis)
+
+    psum = _psum(axis)
+
+    def pad_v(v):
+        return torch.cat([v, v.new_zeros(pad)]) if pad else v
+
+    r0, a, b, w = _linearize(prob, cfg)
+    cost = psum((r0 * r0).sum())
+
+    def jt_local(u):
+        gc, gl = _jtu(a, b, u, tables)
+        return _flatten(gc * mc, gl * ml)          # this rank's partial
+
+    def gather_full(v_shard):
+        return all_gather_cat(v_shard, axis)[:n]
+
+    def jtj_mv_shard(v_shard):
+        vm = gather_full(v_shard) * mask
+        dc, dl = _unflatten(vm, f, l)
+        jv = _jv(a, b, prob.cam_idx, prob.lm_idx, dc, dl)
+        return (reduce_scatter_ordered(pad_v(jt_local(jv)), axis)
+                + lam * rows.shard(pad_v(vm)))
+
+    rhs = -reduce_scatter_ordered(pad_v(jt_local(r0)), axis)
+    x = torch.zeros_like(rhs)
+    r, p = rhs, rhs
+    rs = psum(torch.dot(rhs, rhs))
+    for _ in range(cfg.cg_iterations):
+        ap = jtj_mv_shard(p)
+        alpha = rs / psum(torch.dot(p, ap)).clamp_min(1e-30)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = psum(torch.dot(r, r))
+        beta = rs_new / rs.clamp_min(1e-30)
+        p = r + beta * p
+        rs = rs_new
+
+    x1 = _flatten(prob.cameras, prob.landmarks) + gather_full(x) * mask
+    cams1, lms1 = _unflatten(x1, f, l)
+    return _accept(prob, cams1, lms1, w, lam, cost, psum)
 
 
 def ba_solve(prob: BAProblem, cfg: BAConfig = BAConfig(), cam_mask=None):

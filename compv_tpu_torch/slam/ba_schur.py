@@ -29,8 +29,16 @@ is solved densely by a Cholesky factorization:
     past the golden's bar; assembled in float64 it factors every step and
     meets the golden (``chip_smoke.py --sfm-128``, PERF.md section 6).
 
-Left out: the distributed forms (``psum_axis``, and ``SchurConfig``'s
-``lm_partitioned``, which only they read).
+Distributed (``psum_axis``, a ``parallel.mesh.FrameMesh``; each rank holds
+its own observations): every accumulated term is a sum over observations,
+so the ranks' partials, summed in rank order
+(``parallel._collectives.ordered_sum``), give the dense system of all
+observations on every rank. The W / Z chunks are summed before the W Y W^T
+product (a landmark's observations may lie on several ranks, and the
+product is bilinear); with ``SchurConfig.lm_partitioned`` (each landmark's
+observations on one rank) the products are rank-local and S and its
+right-hand side are summed after them. The sums carry float64, as the
+local step holds.
 """
 from __future__ import annotations
 
@@ -39,10 +47,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from compv_tpu_torch.slam.ba import (BAProblem, _Tables, ba_residuals,
+from compv_tpu_torch.slam.ba import (BAProblem, _Tables, _psum,
+                                     _robust_weights, ba_residuals,
                                      index_table, inv3x3_spd,
-                                     obs_jacobian_blocks, segment_sum,
-                                     _robust_weights)
+                                     obs_jacobian_blocks, segment_sum)
 
 __all__ = ["SchurConfig", "ba_step_schur", "ba_solve_schur",
            "max_obs_per_landmark"]
@@ -53,6 +61,7 @@ class SchurConfig:
     iterations: int = 10
     damping: float = 1e-3
     lm_chunk: int = 512          # landmarks eliminated per chunk
+    lm_partitioned: bool = False  # obs sharding keeps each lm on one rank
     robust_delta: float = 0.0    # IRLS (Cauchy-like) whitening, matching
                                  # BAConfig.robust_delta
 
@@ -83,8 +92,8 @@ def _schur_tables(prob: BAProblem, k: int) -> _Tables:
                                     prob.cam_idx.shape[0])[0])
 
 
-def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
-                  max_obs_per_lm: int = 16, cam_mask=None,
+def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig,
+                  psum_axis=None, *, max_obs_per_lm: int = 16, cam_mask=None,
                   tables: _Tables | None = None):
     """One damped-GN step with explicit Schur elimination of landmarks.
     Camera 0 is gauge-fixed, and so is every False camera of ``cam_mask``.
@@ -93,12 +102,15 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
     Observations beyond the cap ``max_obs_per_lm`` of a landmark are left
     out of the step on both sides (``ba_solve_schur`` sizes the cap from
     the data). ``tables`` (camera and landmark observation tables, built
-    once by ``ba_solve_schur``) are built here when not given."""
+    once by ``ba_solve_schur``) are built here when not given. With
+    ``psum_axis`` (a ``FrameMesh``) ``prob`` holds this rank's observations
+    and the sums are summed over the ranks (module docstring)."""
     f = prob.cameras.shape[0]
     l = prob.landmarks.shape[0]
     o = prob.cam_idx.shape[0]
     k = max_obs_per_lm
     dtype, dev = prob.cameras.dtype, prob.cameras.device
+    psum = _psum(psum_axis)
     if tables is None:
         tables = _schur_tables(prob, k)
 
@@ -111,7 +123,7 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
         r = r * w[:, None]
         jc = jc * w[:, None, None]
         jl = jl * w[:, None, None]
-    cost = (r * r).sum()
+    cost = psum((r * r).sum())
     # the linear algebra in float64 (module docstring); the parameters, the
     # costs and the accept test stay in the problem's dtype
     r, jc, jl = r.double(), jc.double(), jl.double()
@@ -127,6 +139,7 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
     r_k = torch.where(kept[:, None], r, 0.0)
     hcc = segment_sum(tables.cam, torch.einsum("oia,oib->oab", jc_k, jc_k))
     gc = segment_sum(tables.cam, torch.einsum("oia,oi->oa", jc_k, r_k))
+    hcc, gc = psum(hcc), psum(gc)
 
     def zpad(x):
         return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
@@ -138,9 +151,12 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
                        torch.full((1,), f, dtype=torch.long,
                                   device=dev)])[table]      # (L, K), pad f
 
-    hll = torch.einsum("lkia,lkib->lab", jl_l, jl_l)          # (L, 3, 3)
-    gl = torch.einsum("lkia,lki->la", jl_l, r_l)              # (L, 3)
+    hll = psum(torch.einsum("lkia,lkib->lab", jl_l, jl_l))    # (L, 3, 3)
+    gl = psum(torch.einsum("lkia,lki->la", jl_l, r_l))        # (L, 3)
     u = torch.einsum("lkia,lkib->lkab", jc_l, jl_l)           # (L, K, 6, 3)
+    # (L, K) blocks are the step's memory: merged tracks can give a
+    # landmark thousands of observations
+    del jc_l, jl_l, r_l
 
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -153,13 +169,27 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
     rhs_red = torch.zeros((f, 6), dtype=dtype, device=dev)
     cams_f = torch.arange(f, device=dev)
     lc = min(cfg.lm_chunk, l)
-    for c0 in range(0, l, lc):
+    starts = range(0, l, lc)
+    if psum_axis is not None:
+        # a chunk in which no rank holds an observation adds exactly zero:
+        # its sums are skipped (one small sum and one wait decide which)
+        held = torch.stack([(table[c0:c0 + lc] < o).any() for c0 in starts])
+        starts = [c0 for c0, n in zip(starts, psum(held.to(torch.int32))
+                                      .tolist()) if n]
+    for c0 in starts:
         sl = slice(c0, c0 + lc)
         onehot = (cam_l[sl][:, :, None] == cams_f).to(dtype)  # (lc, K, F)
         w_ch = torch.einsum("pkf,pkab->pfab", onehot, u[sl])
         z_ch = torch.einsum("pkf,pkab->pfab", onehot, z[sl])
+        if not cfg.lm_partitioned:
+            # a landmark's W sums observations of every rank, and W Y W^T
+            # is bilinear: sum before the product
+            w_ch, z_ch = psum(torch.stack([w_ch, z_ch]))
         s_off -= torch.einsum("pfab,pgcb->fagc", z_ch, w_ch)
         rhs_red -= torch.einsum("pfab,pb->fa", z_ch, gl[sl])
+    if cfg.lm_partitioned:
+        # the ranks that hold none of a landmark's observations add zero
+        s_off, rhs_red = psum(s_off), psum(rhs_red)
 
     s = s_off.permute(0, 2, 1, 3).clone()                     # (F, F, 6, 6)
     s[cams_f, cams_f] += hcc_d
@@ -188,7 +218,7 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
 
     # back-substitute landmarks: dl = -Y (gl + W^T dx_c)
     dc_pad = torch.cat([dx_c, dx_c.new_zeros((1, 6))])
-    wt_dx = torch.einsum("lkab,lka->lb", u, dc_pad[cam_l])   # (L, 3)
+    wt_dx = psum(torch.einsum("lkab,lka->lb", u, dc_pad[cam_l]))  # (L, 3)
     dx_l = -torch.einsum("lab,lb->la", y, gl + wt_dx)
 
     cams1 = prob.cameras + dx_c.to(prob.cameras.dtype)
@@ -196,7 +226,7 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig, *,
     r1 = ba_residuals(cams1, lms1, prob)
     if w is not None:
         r1 = r1 * w[:, None]          # frozen IRLS weights, like ba_step
-    cost1 = (r1 * r1).sum()
+    cost1 = psum((r1 * r1).sum())
     better = cost1 < cost
     cams = torch.where(better, cams1, prob.cameras)
     lms = torch.where(better, lms1, prob.landmarks)

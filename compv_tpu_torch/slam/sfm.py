@@ -20,8 +20,14 @@ poses.
 
 The numpy-in entry points (``render_orbit_sequence``, ``run_sfm``,
 ``resume_sfm``, ``sfm_ate``) take a ``device``, the card by default; they
-raise where there is none and never fall back to the CPU. Left out: the
-reference's ``mesh`` (a distributed final BA).
+raise where there is none and never fall back to the CPU.
+
+``resume_sfm(mesh=...)`` finishes a run on a process group
+(``parallel.mesh.FrameMesh``) of any size, whatever the size it was
+checkpointed under: the state is the replicated parameters and the
+observation buffers, padded to a multiple of the group's size with
+invalid entries and sharded over its ranks by the final BA
+(``parallel.sharded.distributed_ba_solve``) with the configured solver.
 """
 from __future__ import annotations
 
@@ -242,11 +248,18 @@ def _problem(cams, landmarks, intr, ci, li, uv, ok, dev) -> BAProblem:
         valid=torch.as_tensor(ok, device=dev))
 
 
+def _solver_config(cfg: BAConfig, solver: str):
+    """``cfg``, or its ``SchurConfig`` where the solver is Schur."""
+    if solver == "schur":
+        return SchurConfig(iterations=cfg.iterations, damping=cfg.damping,
+                           robust_delta=cfg.robust_delta)
+    return cfg
+
+
 def _solve(prob: BAProblem, cfg: BAConfig, solver: str, cam_mask=None):
     if solver == "schur":
-        scfg = SchurConfig(iterations=cfg.iterations, damping=cfg.damping,
-                           robust_delta=cfg.robust_delta)
-        return ba_solve_schur(prob, scfg, cam_mask=cam_mask)[0]
+        return ba_solve_schur(prob, _solver_config(cfg, solver),
+                              cam_mask=cam_mask)[0]
     return ba_solve(prob, cfg, cam_mask=cam_mask)[0]
 
 
@@ -579,23 +592,48 @@ def run_sfm(frames: np.ndarray, k: np.ndarray,
 
 def _finalize_sfm(cams, landmarks, lm_valid, ob_ci, ob_li, ob_uv, ob_ok,
                   intr, config: SfmConfig, n_tracks: int, n_obs: int,
-                  frame_stats: list) -> SfmResult:
+                  frame_stats: list, mesh=None) -> SfmResult:
     """Final global BA, prune of the observations with a residual above
     ``config.prune_px``, re-solve, camera centers. Runs on ``intr``'s
-    device."""
+    device. With a ``mesh`` each BA is ``distributed_ba_solve`` over its
+    ranks, by ``config.solver``: CG steps or Schur steps. The reference
+    runs CG steps there whatever the solver; at the 128-frame golden's
+    Schur configuration 10 CG steps leave the trajectory where the
+    checkpoint had it, 3x the golden's ATE. The ranks split the buffer's
+    rows up to its last valid observation, padded to a multiple of the
+    mesh's size (the reference splits the whole padded buffer, whose valid
+    rows all lie at its front: its first rank would hold every
+    observation)."""
     dev = intr.device
     n_frames = cams.shape[0]
     ob_ok = np.array(ob_ok)
 
-    prob0 = _problem(cams, landmarks, intr, ob_ci, ob_li, ob_uv, ob_ok, dev)
-    before = float(reproj_rmse(prob0))
-    solved = _solve(prob0, config.ba, config.solver)
+    def solve(c, lm):
+        if mesh is None:
+            return _solve(_problem(c, lm, intr, ob_ci, ob_li, ob_uv, ob_ok,
+                                   dev), config.ba, config.solver)
+        from compv_tpu_torch.parallel.sharded import distributed_ba_solve
+
+        used = int(np.flatnonzero(ob_ok)[-1]) + 1 if ob_ok.any() else 0
+        m = used + (-used % mesh.size)
+
+        def rows(a, fill=0):
+            a = np.asarray(a)[:m]
+            return np.concatenate([a, np.full((m - len(a),) + a.shape[1:],
+                                              fill, a.dtype)])
+
+        prob = _problem(c, lm, intr, rows(ob_ci), rows(ob_li), rows(ob_uv),
+                        rows(ob_ok, False), dev)
+        return distributed_ba_solve(
+            prob, mesh, _solver_config(config.ba, config.solver))[0]
+
+    before = float(reproj_rmse(_problem(cams, landmarks, intr, ob_ci, ob_li,
+                                        ob_uv, ob_ok, dev)))
+    solved = solve(cams, landmarks)
     r = _np(ba_residuals(solved.cameras, solved.landmarks, solved))
-    ob_ok[:] = (np.linalg.norm(r[:len(ob_ok)], axis=1)
-                <= config.prune_px) & ob_ok
-    solved = _solve(_problem(_np(solved.cameras), _np(solved.landmarks),
-                             intr, ob_ci, ob_li, ob_uv, ob_ok, dev),
-                    config.ba, config.solver)
+    m = min(len(r), len(ob_ok))
+    ob_ok[:m] &= np.linalg.norm(r[:m], axis=1) <= config.prune_px
+    solved = solve(_np(solved.cameras), _np(solved.landmarks))
     after = float(reproj_rmse(solved))
 
     cams_f = _np(solved.cameras)
@@ -612,13 +650,15 @@ def _finalize_sfm(cams, landmarks, lm_valid, ob_ci, ob_li, ob_uv, ob_ok,
 
 
 def resume_sfm(checkpoint, config: SfmConfig = SfmConfig(),
-               device=None) -> SfmResult:
+               device=None, mesh=None) -> SfmResult:
     """Finish an SfM run from its mid-sequence state: the final global BA,
     the prune and the re-solve. ``checkpoint`` is the path of a checkpoint
     that ``run_sfm(..., checkpoint_dir=...)`` wrote, or such a state as a
     dict of tensors (``interop.sfm_state_from_numpy`` makes one from the
-    JAX package's checkpoint)."""
-    dev = _device(device)
+    JAX package's checkpoint). With ``mesh`` (a ``FrameMesh``, called by
+    every rank) the final BA runs distributed over its ranks, on
+    ``mesh.device``, whatever group size wrote the checkpoint."""
+    dev = mesh.device if mesh is not None else _device(device)
     st = load_checkpoint(checkpoint) if isinstance(checkpoint, str) \
         else checkpoint
     st = {name: _np(torch.as_tensor(st[name]).to(dtype))
@@ -627,7 +667,7 @@ def resume_sfm(checkpoint, config: SfmConfig = SfmConfig(),
                          st["ob_ci"], st["ob_li"], st["ob_uv"], st["ob_ok"],
                          _intrinsics(st["k"], dev), config,
                          int(st["n_tracks"].ravel()[0]),
-                         int(st["n_obs"].ravel()[0]), [])
+                         int(st["n_obs"].ravel()[0]), [], mesh=mesh)
 
 
 def sfm_ate(frames: np.ndarray, gt_centers: np.ndarray, k: np.ndarray,

@@ -244,6 +244,45 @@ def test_inv3x3_spd():
                 np.asarray(jba.inv3x3_spd(jnp.asarray(m)))) <= 1e-6
 
 
+def _ray_block():
+    """A damped landmark block seen along one ray, s v v^T + lam I in
+    float32 (SPD: its float64 eigenvalues are positive), whose float32
+    adjugate det comes out <= 0: the first of seed 0's draws that does."""
+    rs = np.random.default_rng(0)
+    while True:
+        v = rs.normal(size=3)
+        v /= np.linalg.norm(v)
+        m = (10 ** rs.uniform(3, 6) * np.outer(v, v)
+             + 10 ** rs.uniform(-4, -1) * np.eye(3)).astype(np.float32)
+        m = (m + m.T) / 2
+        inv32 = tba.inv3x3_spd(torch.from_numpy(m)).numpy()
+        if np.linalg.eigvalsh(m.astype(np.float64)).min() > 0 and not (
+                np.isfinite(inv32).all()
+                and np.linalg.eigvalsh(inv32.astype(np.float64)).min() > 0):
+            return m, inv32
+
+
+def test_preconditioner_blocks_inverted_in_float64(monkeypatch):
+    """The float32 adjugate of such a block is not SPD (or not finite); the
+    float64 one, cast back, is the inverse. ba_step(precondition=True)
+    inverts its landmark blocks in float64."""
+    m, inv32 = _ray_block()
+    m64 = m.astype(np.float64)
+    assert np.linalg.det(m64) > 0
+    inv = tba.inv3x3_spd(torch.from_numpy(m).double()).float().numpy()
+    assert np.isfinite(inv).all()
+    assert np.linalg.eigvalsh(inv.astype(np.float64)).min() > 0
+    assert _rel(inv, np.linalg.inv(m64)) <= 1e-5
+    seen = []
+    inner = tba.inv3x3_spd
+    monkeypatch.setattr(tba, "inv3x3_spd",
+                        lambda x: seen.append(x.dtype) or inner(x))
+    prob = ba_problem_from_numpy(_scene(8, noise_px=0.0, outliers=False))
+    tba.ba_step(prob, torch.tensor(1e-3),
+                tba.BAConfig(cg_iterations=5, precondition=True))
+    assert seen == [torch.float64]
+
+
 # ---------------------------------------------------------------- steps
 
 def test_ba_step_scene():

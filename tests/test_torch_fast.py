@@ -109,6 +109,27 @@ def test_library_path_is_keyed_by_source():
     assert p == _build.library_path("fast_kernel")
 
 
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Threads that build one source take turns on its lock file: the
+    compiler (here a stand-in that takes half a second) runs once, and
+    every thread gets its library."""
+    import concurrent.futures
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    runs = tmp_path / "runs"
+    nvcc.write_text("#!/bin/sh\nsleep 0.5\necho run >> " + str(runs) + "\n"
+                    "while [ \"$1\" != -o ]; do shift; done\ntouch \"$2\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parent.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        paths = list(pool.map(lambda _: _build.build("fast_kernel"),
+                              range(4)))
+    assert runs.read_text().splitlines() == ["run"]
+    assert len(set(paths)) == 1 and paths[0].exists()
+
+
 def test_fast_strengths_and_nms_match_reference():
     img = make_test_image(120, 160)
     s = fast.fast_strengths(torch.from_numpy(img), 20, 9)

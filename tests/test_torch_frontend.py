@@ -195,8 +195,11 @@ def test_port_imports_neither_jax_nor_reference():
     for d, _, names in os.walk(os.path.join(_ROOT, "compv_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    # the slice-4 and slice-5 modules are among them
-    for rel in ("math/matrix.py", "math/ops.py", "math/pca.py",
+    # the slice-4, slice-5 and slice-6 modules are among them
+    for rel in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "parallel/_collectives.py",
+                "parallel/sharded.py", "parallel/launch.py",
+                "math/matrix.py", "math/ops.py", "math/pca.py",
                 "image/integral.py", "image/morph.py", "image/color.py",
                 "image/histogram.py", "image/threshold.py",
                 "features/hog.py", "ml/knn.py", "ml/svm.py",

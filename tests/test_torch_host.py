@@ -20,6 +20,7 @@ Covers what ``tests/test_config_profiling.py`` and the registry cases of
 import dataclasses
 import json
 import os
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -321,6 +322,77 @@ def test_trace_on_cpu_writes_a_chrome_trace(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::add_" in str(e.get("name")) for e in events)
+
+
+def test_window_shortfall_names_the_missing_kernels():
+    names = ["void (anonymous namespace)::fast_kernel<9, 32, false>("
+             "unsigned char const*, int)",
+             "(anonymous namespace)::label_tiles(unsigned char const*, int)",
+             "void at::native::vectorized_elementwise_kernel<4>(int)",
+             "my_fast_kernel_copy(int)"]
+    launched = {"fast_kernel": 2, "label_tiles": 1, "merge_seeded": 0}
+    assert profiling.window_shortfall(launched, names) == {
+        "fast_kernel": (2, 1)}
+    assert profiling.window_shortfall({"fast_kernel": 1}, names) == {}
+    assert profiling.window_shortfall(
+        {"fast_kernel": 1}, ["void fast_kernel<9, 16, true>(int)"]) == {}
+    assert set(profiling.hand_kernel_launches()) == {
+        "fast_kernel", "label_tiles", "merge_seeded", "compact",
+        "sht_accumulate", "strip_counts"}
+
+
+class _Event:
+    def __init__(self, name):
+        self._name = name
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA
+
+
+class _ShortProfile:
+    """A stand-in for torch.profiler.profile whose window recorded one K1
+    kernel, whatever ran in it."""
+
+    def __init__(self, activities):
+        self.profiler = self
+        self.kineto_results = self
+
+    def events(self):
+        return [_Event("void fast_kernel<9, 16, false>(unsigned char "
+                       "const*, int, int)")]
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": []}, f)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_trace_warns_when_its_window_drops_launches(tmp_path, monkeypatch):
+    """On the card, a window holding fewer K1 kernels than K1's counter
+    grew in it warns and says so; one holding them all does not."""
+    from compv_tpu_torch.ops.kernels import fast_kernel
+    monkeypatch.setattr(torch.profiler, "profile", _ShortProfile)
+    monkeypatch.setattr(profiling, "require_cuda", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiling, "_first_kernel", lambda: None)
+    monkeypatch.setattr(fast_kernel, "launches", 0)
+    with pytest.warns(RuntimeWarning, match="fast_kernel"):
+        with profiling.trace(str(tmp_path)) as prof:
+            fast_kernel.launches += 2       # two launches, one traced
+    assert prof.shortfall == {"fast_kernel": (2, 1)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with profiling.trace(str(tmp_path)) as prof:
+            fast_kernel.launches += 1
+    assert prof.shortfall == {}
 
 
 def test_card_entry_points_need_a_card(tmp_path):
