@@ -195,6 +195,13 @@ def test_port_imports_neither_jax_nor_reference():
     for d, _, names in os.walk(os.path.join(_ROOT, "compv_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    # the port's example programs, and their common.py
+    examples = os.path.join(_ROOT, "examples_torch")
+    programs = sorted(n for n in os.listdir(examples) if n.endswith(".py"))
+    assert programs == sorted(
+        n for n in os.listdir(os.path.join(_ROOT, "examples"))
+        if n.endswith(".py"))
+    files += [os.path.join(examples, n) for n in programs]
     # the slice-4, slice-5 and slice-6 modules are among them
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/distributed.py", "parallel/_collectives.py",
