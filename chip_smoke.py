@@ -29,9 +29,11 @@ a fresh process and after a load of other work):
     python3 chip_smoke.py --distributed
     python3 chip_smoke.py --trace-probe
 
-With --examples it only runs phase 22 (after phase 1's build):
+With --examples it only runs phase 22, and with --bench only phase 23
+(each after phase 1's build):
 
     python3 chip_smoke.py --examples
+    python3 chip_smoke.py --bench
 
 Phases, each printing its lines before the last:
   1. device and build: the card's name and power limit, the five kernel
@@ -234,7 +236,20 @@ Phases, each printing its lines before the last:
      0) and its full-precision results held to EXAMPLES_REF; and once on
      the CPU, whose written images the card run's are compared with (equal
      where the CPU port is equal to the reference, else within the pixel
-     counts the CPU tests state). A program that fails fails the script.
+     counts the CPU tests state). A program that fails fails the script;
+ 23. the port's measurement programs: bench_torch.py (bench.py's 29 rows
+     through the port) as a program on the card at a --target-diff of
+     BENCH_TARGET_DIFF, beside its --once run on the CPU: 29 row lines in
+     bench.py's order and the suite_geomean_vs_reference line, each naming
+     the card, no error line and rc 0; each row's checksum from one call on
+     the card equal to the CPU's (accumulators within BENCH_ACC_REL) and
+     the hand kernels that call launched as BENCH_LAUNCHES (K1 once in the
+     FAST row and 16 times in frontend_pair_720p, K2a in ccl_label_text, K3
+     in ccl_boxes_text, K2b 49 times in mser_text, K4 in hough_sht, none
+     elsewhere); then each row's call in this process, timed by CUDA
+     events and under torch.profiler (device busy, launches, idle share),
+     and scripts/roofline_torch.py's K1, K2a and K4 rows, each share of
+     its bound at most 100 %.
 
 The scenes come from bench.py's _images(), loaded by path (its module level
 imports numpy only). Any failed check raises, and the script exits
@@ -247,8 +262,10 @@ reading is made by CUDA events or left null, counted on the "profiler"
 line; --no-profiler makes every reading that way), twin time, bound (the larger of its
 bytes over the card's memory rate and its operations over the card's peak
 rate, from this run's inputs) and library time (null: no single PyTorch
-call computes any of the six functions). The line before the last names the card and its power
-limit; the last line of standard output is one JSON object:
+call computes any of the six functions); K1-K4 also give their launches
+in one call of each bench_torch.py row (phase 23). The line before the
+last names the card and its power limit; the last line of standard output
+is one JSON object:
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -4653,6 +4670,132 @@ def live_frame_gap(result: dict) -> int:
     return image_gap(result["last"], want)
 
 
+# ---------------------------------------------------------------- phase 23
+
+# The hand kernels that one call of each bench_torch.py row launches on the
+# card; every row not named launches none. mser_text: K2b on the 49 changed
+# levels of the text scene's ladder (phase 7's count).
+BENCH_LAUNCHES = {
+    "fast9_nms_detect_fps_1282x720": {"K1": 1},
+    "frontend_pair_720p": {"K1": 16},
+    "ccl_label_text": {"K2a": 1},
+    "ccl_boxes_text": {"K3": 1},
+    "mser_text": {"K2b": 49},
+    "hough_sht": {"K4": 1},
+}
+# accumulators, card against the CPU: float sums in another order (HOG's
+# 2.4M values, the homography's entries)
+BENCH_ACC_REL = 1e-3
+BENCH_TARGET_DIFF = "0.05"
+
+
+def bench_lines(stdout: str) -> list:
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{")]
+
+
+def phase23_bench(dev, card: str) -> dict:
+    """bench_torch.py as a program on the card at a short --target-diff,
+    beside its --once run on the CPU: every row's line naming the card, no
+    error line, rc 0, each row's checksum equal to the CPU's (accumulators
+    within BENCH_ACC_REL) and its hand kernels as BENCH_LAUNCHES; then
+    each row's call here under CUDA events and the profiler, and
+    scripts/roofline_torch.py's K1, K2a and K4 rows, each share at most
+    100 %."""
+    import gc
+
+    bt = load_by_path("bench_torch", "bench_torch.py")
+    gc.collect()
+    torch.cuda.empty_cache()    # the program shares the card with this one
+    script = os.path.join(ROOT, "bench_torch.py")
+    t0 = time.perf_counter()
+    # the CPU's checksums meanwhile, on the cores the card's run leaves
+    cpu_run = subprocess.Popen(
+        [sys.executable, script, "--device", "cpu", "--once"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "6"})
+    try:
+        proc = subprocess.run(
+            [sys.executable, script, "--target-diff", BENCH_TARGET_DIFF],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cpu_out, cpu_err = cpu_run.communicate(timeout=600)
+    finally:
+        if cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"bench_torch.py exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+          f"\n{proc.stderr[-3000:]}")
+    check(cpu_run.returncode == 0,
+          f"bench_torch.py --device cpu --once exited {cpu_run.returncode}:"
+          f"\n{cpu_out[-3000:]}\n{cpu_err[-3000:]}")
+    lines = bench_lines(proc.stdout)
+    names = [name for name, _ in bt.REF_FPS]
+    check([line["metric"] for line in lines]
+          == names + ["suite_geomean_vs_reference"],
+          f"bench_torch.py printed {[line['metric'] for line in lines]}")
+    check(all(line.get("device") == card and "error" not in line
+              for line in lines), "a bench_torch.py line has an error or "
+          "does not name the card")
+    on_cpu = {line["metric"]: line for line in bench_lines(cpu_out)}
+    check(list(on_cpu) == names, f"--once printed {list(on_cpu)}")
+    rows = {}
+    for line in lines[:-1]:
+        name, cpu = line["metric"], on_cpu[line["metric"]]
+        check(line["checksum"] == cpu["checksum"],
+              f"{name}: checksum {line['checksum']} on the card, "
+              f"{cpu['checksum']} on the CPU")
+        rel = abs(line["acc"] - cpu["acc"]) / max(abs(cpu["acc"]), 1e-30)
+        check(rel <= BENCH_ACC_REL,
+              f"{name}: accumulator {line['acc']} on the card, {cpu['acc']} "
+              f"on the CPU ({rel} relative)")
+        want = BENCH_LAUNCHES.get(name, {})
+        check(line["launches"] == want,
+              f"{name}: hand kernels {line['launches']} != {want}")
+        rows[name] = {"fps": line["value"], "vs_baseline":
+                      line["vs_baseline"], "ms": line["ms"],
+                      "event_ms": line["event_ms"], "acc_rel_err": rel,
+                      "launches": line["launches"],
+                      **({"method": line["method"]} if "method" in line
+                         else {})}
+
+    # each row's call here, back to back and under the profiler: device
+    # busy, launches and idle share a call
+    inp = {k: torch.from_numpy(v).to(dev)
+           for k, v in bt.inputs(*bt._images()).items()}
+    for name, arr, fn, _ in bt.rows(inp):
+        arr = arr() if callable(arr) else arr
+        ms = cuda_ms(lambda: fn(arr), reps=5)
+        rows[name]["here"] = {"ms": ms, **device_profile(lambda: fn(arr), ms)}
+    del inp
+
+    rf = load_by_path("roofline_torch", os.path.join("scripts",
+                                                     "roofline_torch.py"))
+    roof = rf.measure(["fast9", "ccl", "hough"], dev,
+                      rf.PEAKS[torch.cuda.get_device_name(0)], 0.1)
+    check([r["name"] for r in roof] == [rf.ROWS[0], rf.ROWS[3], rf.ROWS[4]],
+          f"roofline rows {[r['name'] for r in roof]}")
+    for r in roof:
+        check(0 < r["share"] <= 1, f"{r['name']}: share {r['share']}")
+    out = {"phase": 23, "card": card, "rows": rows,
+           "geomean": lines[-1], "seconds": round(seconds, 3),
+           "roofline": [{k: r[k] for k in ("name", "ms", "event_ms",
+                                           "bound_ms", "bound_by", "share",
+                                           "launches")} for r in roof],
+           "bars": "29 rows and the geomean naming the card, rc 0; "
+                   "checksums equal to the CPU's --once run, accumulators "
+                   f"within {BENCH_ACC_REL} relative; hand kernels as "
+                   "BENCH_LAUNCHES; roofline shares at most 100 %",
+           "timing": f"bench_torch.py --target-diff {BENCH_TARGET_DIFF} "
+                     "(the CPU run beside it); here: the median of 5 "
+                     "CUDA-event timings of a call after two warm-up calls, "
+                     "busy, launches and idle share by torch.profiler over "
+                     "3 calls"}
+    emit(out)
+    return out
+
+
 def trace_probe() -> int:
     """Windows of torch.profiler around K1 launches, each counted against
     K1's launch counter: raw windows opened with and without a synchronize
@@ -4845,6 +4988,11 @@ def main() -> int:
         sys.path.insert(0, ROOT)
         phase22_examples(*phase1_device_and_build())
         return 0
+    if "--bench" in sys.argv[1:]:
+        # phase 23 alone
+        sys.path.insert(0, ROOT)
+        phase23_bench(*phase1_device_and_build())
+        return 0
     if "--sfm-128" in sys.argv[1:]:
         # the 128-frame golden run alone, from the package under root
         sys.path.insert(0, root)
@@ -4884,6 +5032,7 @@ def main() -> int:
           "native/libcompv_native.so changed during slice 5")
     s6 = phase21_distributed(dev, card, scene, sfm)
     s7 = phase22_examples(dev, card)
+    s8 = phase23_bench(dev, card)
     times.update(k45_times)
     bounds.update(k45_bounds)
     launches["K1"] = k1_launches
@@ -4932,7 +5081,10 @@ def main() -> int:
         **({"launches_per_example_program": {
             name: run["launches"][kid]
             for name, run in s7["in_process"].items()
-            if kid in run["launches"]}} if kid in ("K1", "K4") else {})}
+            if kid in run["launches"]}} if kid in ("K1", "K4") else {}),
+        **({"launches_per_bench_row": {
+            name: row["launches"][kid] for name, row in s8["rows"].items()
+            if kid in row["launches"]}} if kid != "K5" else {})}
         for kid, (name, source, replaces) in KERNELS.items()]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu",

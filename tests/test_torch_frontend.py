@@ -216,7 +216,13 @@ def test_port_imports_neither_jax_nor_reference():
                 "io/camera.py", "viz/__init__.py", "viz/text.py",
                 "viz/draw.py", "viz/stream.py"):
         assert os.path.join(_ROOT, "compv_tpu_torch", rel) in files, rel
-    for path in files:
+    # the measurement programs keep their own copies of bench.py's parts
+    programs = [os.path.join(_ROOT, "bench_torch.py"),
+                os.path.join(_ROOT, "scripts", "roofline_torch.py")]
+    for path in files + programs:
+        forbidden = ("jax", "jaxlib", "compv_tpu") + (
+            ("bench",) if path in programs else ())
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "compv_tpu"), (path, mod)
+            assert top not in forbidden, (path, mod)
+    assert "bench_torch" in set(_imported_modules(programs[1]))
