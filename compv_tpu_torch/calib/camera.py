@@ -15,6 +15,9 @@ select, so nothing waits on the device.
 Signs: the eigenvector b is normalized to b0 > 0 as in the reference, and
 the rotation's U is multiplied by the sign of det(U Vt); what comes out
 does not depend on the sign the solver returns.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.calib.homography import compute_homography_dlt
 from compv_tpu_torch.calib.lm import LMConfig, levenberg_marquardt
 from compv_tpu_torch.calib.utils import project_points_dist
@@ -85,6 +89,7 @@ def _k_matrix(fx, fy, cx, cy, skew) -> torch.Tensor:
                         torch.stack([zero, zero, one])])
 
 
+@at_x64_off(floats=("hs",))
 def intrinsics_from_homographies(hs: torch.Tensor) -> torch.Tensor:
     """(P, 3, 3) homographies -> (3, 3) K in closed form (Burger Alg. 4.4);
     P >= 3 (or >= 2 with zero skew)."""
@@ -106,6 +111,7 @@ def intrinsics_from_homographies(hs: torch.Tensor) -> torch.Tensor:
     return _k_matrix(alpha, beta, u0, v0, gamma)
 
 
+@at_x64_off(floats=("h", "k"))
 def extrinsics_from_homography(h: torch.Tensor, k: torch.Tensor):
     """R|t of a plane from its homography, for (..., 3, 3) H: r1 = lam
     K^-1 h1, r2 = lam K^-1 h2, r3 = r1 x r2, t = lam K^-1 h3, R
@@ -179,6 +185,7 @@ def _calibration_residual(x: torch.Tensor, obj_pts: torch.Tensor,
             - img_pts).reshape(-1)
 
 
+@at_x64_off(floats=("obj_pts", "img_pts"))
 def calibrate_camera(obj_pts: torch.Tensor, img_pts: torch.Tensor,
                      config: CalibrationConfig = CalibrationConfig()
                      ) -> CalibrationResult:

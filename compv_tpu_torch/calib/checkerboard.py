@@ -11,6 +11,9 @@ Everything after the Hough lines runs on the device with no host sync.
 Intersections use ``torch.cos`` / ``torch.sin``, which may differ from
 XLA's by an ulp, so corners agree with the reference within a tolerance
 (``tests/test_torch_checkerboard.py``), not bit for bit.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from compv_tpu_torch.calib.homography import compute_homography_dlt
-from compv_tpu_torch.core.types import Lines
+from compv_tpu_torch.core.types import Lines, at_x64_off
 from compv_tpu_torch.features.canny import CannyConfig, canny
 from compv_tpu_torch.features.hough import HoughShtConfig, hough_sht
 from compv_tpu_torch.math.transform import apply_homography
@@ -51,6 +54,7 @@ class CheckerboardResult(NamedTuple):
     v_lines: Lines
 
 
+@at_x64_off(floats=("rho1", "theta1", "rho2", "theta2"))
 def line_intersections(rho1, theta1, rho2, theta2):
     """Intersection of x cos(t1) + y sin(t1) = r1 with the t2/r2 line.
     Batched over any broadcast shape."""
@@ -119,6 +123,7 @@ def _saddle(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return resp
 
 
+@at_x64_off
 def find_chessboard_corners(img: torch.Tensor,
                             config: CheckerboardConfig = CheckerboardConfig()
                             ) -> CheckerboardResult:

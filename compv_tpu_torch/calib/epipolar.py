@@ -12,6 +12,9 @@ Eigen- and singular vectors are defined up to sign, and cuSOLVER, LAPACK
 and XLA may pick different ones: E, the Sampson error and the
 triangulated points do not depend on it, and ``decompose_essential`` makes
 U and V^T proper rotations before it builds its candidates.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.math.stats import hartley_normalize
 from compv_tpu_torch.ops import threefry
 from compv_tpu_torch.math.rotation import matrix_to_rodrigues
@@ -68,6 +72,7 @@ def _eight_point(src: torch.Tensor, dst: torch.Tensor,
     return t_d.mT @ f @ t_s
 
 
+@at_x64_off(floats=("src", "dst"))
 def compute_fundamental_8pt(src: torch.Tensor, dst: torch.Tensor,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     return _eight_point(src, dst, mask)
@@ -80,6 +85,7 @@ def _essential_from_f(f: torch.Tensor) -> torch.Tensor:
     return (u * d) @ vt
 
 
+@at_x64_off(floats=("e", "src", "dst"))
 def sampson_error(e: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
                   ) -> torch.Tensor:
     """First-order geometric (Sampson) error per correspondence; ``e``
@@ -95,6 +101,7 @@ def sampson_error(e: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
     return num / den.clamp_min(1e-18)
 
 
+@at_x64_off(floats=("r", "t", "src", "dst"))
 def triangulate_points(r: torch.Tensor, t: torch.Tensor, src: torch.Tensor,
                        dst: torch.Tensor) -> torch.Tensor:
     """Linear (DLT) triangulation in normalized coords, cam1 = [I|0], cam2
@@ -116,6 +123,7 @@ def triangulate_points(r: torch.Tensor, t: torch.Tensor, src: torch.Tensor,
     return x[..., :3] / w[..., None]
 
 
+@at_x64_off(floats=("e", "src", "dst"))
 def decompose_essential(e: torch.Tensor, src: torch.Tensor,
                         dst: torch.Tensor, mask: torch.Tensor):
     """E -> (R, t, points) with the cheirality test over the 4 candidates
@@ -138,6 +146,7 @@ def decompose_essential(e: torch.Tensor, src: torch.Tensor,
     return rs[best], ts[best], pts[best]
 
 
+@at_x64_off(floats=("src_px", "dst_px", "k"))
 def find_essential(src_px: torch.Tensor, dst_px: torch.Tensor,
                    k: torch.Tensor, mask: torch.Tensor | None = None,
                    config: EssentialConfig = EssentialConfig()

@@ -8,6 +8,9 @@ reference's threefry stream (``ops/threefry.py``, keyed by
 in one batch, the best hypothesis kept and refined by a normalized DLT on
 its inliers (reference CompVHomography<T>::find,
 compv_core_calib_homography.cxx:60). ``vmap`` becomes a leading batch axis.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.calib.ransac import _masked_sample_idx
 from compv_tpu_torch.math.stats import hartley_normalize
 from compv_tpu_torch.math.transform import apply_homography
@@ -56,6 +60,7 @@ def _normalize_h22(h: torch.Tensor) -> torch.Tensor:
     return h / torch.where(h22.abs() < 1e-12, 1e-12, h22)
 
 
+@at_x64_off(floats=("src", "dst"))
 def compute_homography_dlt(src: torch.Tensor, dst: torch.Tensor,
                            mask: torch.Tensor | None = None) -> torch.Tensor:
     """Normalized DLT: (3,3) H with H[2,2]=1 mapping src->dst over the
@@ -124,6 +129,7 @@ def _h_from_quad(src4: torch.Tensor, dst4: torch.Tensor) -> torch.Tensor:
     return _normalize_h22(t_dst_inv @ hn @ t_src)
 
 
+@at_x64_off(floats=("h", "src", "dst"))
 def symmetric_transfer_error(h: torch.Tensor, src: torch.Tensor,
                              dst: torch.Tensor) -> torch.Tensor:
     """Per-point d(H src, dst)^2 + d(H^-1 dst, src)^2 for (..., 3, 3) H ->
@@ -146,6 +152,7 @@ def _quad_nondegenerate(p4: torch.Tensor) -> torch.Tensor:
     return (cross.abs() > 1e-5 * scale).all(dim=-1)
 
 
+@at_x64_off(floats=("src", "dst"))
 def find_homography(src: torch.Tensor, dst: torch.Tensor,
                     mask: torch.Tensor | None = None,
                     config: HomographyConfig = HomographyConfig()

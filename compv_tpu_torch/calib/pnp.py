@@ -8,6 +8,9 @@ scored by one batched reprojection; the best is re-solved on its inliers
 and polished by a few Gauss-Newton steps on (rvec, tvec), with
 ``torch.func.jacfwd`` over the 6 pose parameters where the reference uses
 ``jax.jacfwd``. Nothing waits on the device.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.calib.homography import _masked_sample_idx
 from compv_tpu_torch.math.rotation import matrix_to_rodrigues, rodrigues_to_matrix
 
@@ -55,6 +59,7 @@ def _project_norm(rvec: torch.Tensor, tvec: torch.Tensor,
     return pc[..., :2] / z[..., None]
 
 
+@at_x64_off(floats=("pts3d", "pts2d_norm"))
 def pnp_dlt(pts3d: torch.Tensor, pts2d_norm: torch.Tensor,
             mask: torch.Tensor | None = None):
     """Direct linear transform PnP: (..., N, 3) world points and (..., N,
@@ -64,7 +69,10 @@ def pnp_dlt(pts3d: torch.Tensor, pts2d_norm: torch.Tensor,
     P (3, 4) is the smallest eigenvector of the 2N x 12 system's normal
     matrix; its sign is fixed by det(P[:, :3]) (det = lambda^3, lambda > 0
     for points in front of the camera), M = P[:, :3] is projected onto
-    SO(3) by an SVD and the scale recovered from its singular values."""
+    SO(3) by an SVD and the scale recovered from its singular values.
+    The 12 x 12 eigendecomposition is float32, as the reference's: on
+    poorly spread points the card's solver and LAPACK can return null
+    vectors far apart (the sweep's ``CARD_FAULTS``)."""
     if mask is None:
         mask = torch.ones(pts3d.shape[:-1], dtype=torch.bool,
                           device=pts3d.device)
@@ -107,6 +115,7 @@ def _refine_gn(rvec, tvec, pts3d, pts2d, weights, iterations: int):
     return p6[:3], p6[3:]
 
 
+@at_x64_off(floats=("pts3d", "pts2d_px", "k"))
 def solve_pnp(pts3d: torch.Tensor, pts2d_px: torch.Tensor, k: torch.Tensor,
               mask: torch.Tensor | None = None,
               config: PnpConfig = PnpConfig()) -> PnpResult:

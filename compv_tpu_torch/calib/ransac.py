@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from compv_tpu_torch.ops import threefry
-from compv_tpu_torch.ops.topk import select_top_k
+from compv_tpu_torch.ops.topk import top_k
 
 __all__ = ["RansacConfig", "RansacResult", "ransac"]
 
@@ -61,7 +61,7 @@ def _masked_sample_idx(seed: int, mask: torch.Tensor, s: int, k: int
     ``jax.random.uniform(PRNGKey(seed), (s, n))`` stream)."""
     u = threefry.uniform(seed, (s, mask.shape[0]), mask.device)
     u = torch.where(mask[None, :], u, -1.0)
-    _, idx = select_top_k(u, k)
+    _, idx = top_k(u, k)
     return idx
 
 

@@ -5,11 +5,15 @@ undist2DImage, dist2DPoints).
 
 ``project_points_dist`` takes leading batch dimensions on the pose, so one
 call projects the model points into every view.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.image.remap import remap_bilinear
 from compv_tpu_torch.math.rotation import rodrigues_to_matrix
 
@@ -17,6 +21,7 @@ __all__ = ["project_points_dist", "distort_normalized", "reproj_error_rms",
            "build_undistort_map", "undistort_image", "undistort_points"]
 
 
+@at_x64_off(floats=("xn", "yn", "dist"))
 def distort_normalized(xn: torch.Tensor, yn: torch.Tensor,
                        dist: torch.Tensor):
     """Radial (k1, k2) and tangential (p1, p2) distortion of normalized
@@ -32,6 +37,7 @@ def distort_normalized(xn: torch.Tensor, yn: torch.Tensor,
     return xd, yd
 
 
+@at_x64_off(floats=("pts3d", "k", "dist", "rvec", "tvec"))
 def project_points_dist(pts3d: torch.Tensor, k: torch.Tensor,
                         dist: torch.Tensor, rvec: torch.Tensor,
                         tvec: torch.Tensor) -> torch.Tensor:
@@ -48,6 +54,7 @@ def project_points_dist(pts3d: torch.Tensor, k: torch.Tensor,
     return torch.stack([u, v], dim=-1)
 
 
+@at_x64_off(floats=("observed", "projected"))
 def reproj_error_rms(observed: torch.Tensor, projected: torch.Tensor,
                      mask: torch.Tensor | None = None) -> torch.Tensor:
     """RMS reprojection error (proj2DError)."""
@@ -58,6 +65,7 @@ def reproj_error_rms(observed: torch.Tensor, projected: torch.Tensor,
     return d2.mean().sqrt()
 
 
+@at_x64_off(floats=("k", "dist"))
 def build_undistort_map(k: torch.Tensor, dist: torch.Tensor, height: int,
                         width: int):
     """For each undistorted output pixel, where to sample the distorted
@@ -75,6 +83,7 @@ def build_undistort_map(k: torch.Tensor, dist: torch.Tensor, height: int,
     return fx * xd + skew * yd + cx, fy * yd + cy
 
 
+@at_x64_off(floats=("k", "dist"))
 def undistort_image(img: torch.Tensor, k: torch.Tensor, dist: torch.Tensor
                     ) -> torch.Tensor:
     """undist2DImage: the undistortion map, then a bilinear remap."""
@@ -83,6 +92,7 @@ def undistort_image(img: torch.Tensor, k: torch.Tensor, dist: torch.Tensor
     return remap_bilinear(img, mx, my)
 
 
+@at_x64_off(floats=("pts", "k", "dist"))
 def undistort_points(pts: torch.Tensor, k: torch.Tensor, dist: torch.Tensor,
                      iterations: int = 8) -> torch.Tensor:
     """Invert the distortion of (N, 2) pixel points by ``iterations``

@@ -71,7 +71,8 @@ def label_components(binary: torch.Tensor, connectivity: int = 8,
                      max_iterations: int = 64) -> torch.Tensor:
     """(H, W) u8/bool -> (H, W) i32 labels. Foreground pixels (> 0) get
     the min flat index of their component; background gets -1."""
-    return ccl_kernel.ccl_label(binary, connectivity, max_iterations)
+    return ccl_kernel.ccl_label(binary, connectivity,
+                                max_iterations=max_iterations)
 
 
 def label_components_seeded(binary: torch.Tensor, init: torch.Tensor,
@@ -82,7 +83,7 @@ def label_components_seeded(binary: torch.Tensor, init: torch.Tensor,
     background): each component gets the minimum of init over it. Used by
     MSER's incremental gray-level ladder."""
     return ccl_kernel.ccl_label_seeded(binary, init, connectivity,
-                                       max_iterations)
+                                       max_iterations=max_iterations)
 
 
 def ccl_features(binary: torch.Tensor, config: CclConfig = CclConfig()

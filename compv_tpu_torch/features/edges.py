@@ -5,13 +5,16 @@ The two separable passes run on ``ops/conv.convolve_separable``, the
 reference's shift-and-add order, so ``sobel_gradients`` and ``edge_detect``
 are bit-equal to the reference. ``gradient_magnitude_direction``'s
 direction is ``torch.atan2``, which may differ from XLA's ``arctan2`` by an
-ulp.
+ulp. Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off, is_integer_dtype
+from compv_tpu_torch.math.ops import _wrap, _wrap_mul
 from compv_tpu_torch.ops.conv import convolve_separable
 
 __all__ = ["sobel_gradients", "edge_detect", "KERNELS",
@@ -25,6 +28,7 @@ KERNELS = {
 }
 
 
+@at_x64_off
 def sobel_gradients(img: torch.Tensor, operator: str = "sobel"):
     """Returns (gx, gy) float32, same shape. gx = horizontal derivative."""
     smooth, deriv = KERNELS[operator]
@@ -34,10 +38,22 @@ def sobel_gradients(img: torch.Tensor, operator: str = "sobel"):
     return gx, gy
 
 
+@at_x64_off
 def gradient_magnitude_direction(gx: torch.Tensor, gy: torch.Tensor,
                                  l2: bool = False):
     """Magnitude (L1 by default, like the reference's Canny) and direction
-    in radians [-pi, pi]."""
+    in radians [-pi, pi]. Integer gradients keep the reference's dtypes:
+    the L1 magnitude in theirs (wrapping), the L2 one and the direction
+    float32."""
+    if is_integer_dtype(gx.dtype):
+        dt = gx.dtype               # the reference's wrap-around in dt
+        x, y = gx.to(torch.int64), gy.to(torch.int64)
+        if l2:
+            s = _wrap(_wrap_mul(x, x, dt) + _wrap_mul(y, y, dt), dt)
+            mag = torch.sqrt(s.to(torch.float32))
+        else:
+            mag = _wrap(_wrap(x.abs(), dt) + _wrap(y.abs(), dt), dt).to(dt)
+        return mag, torch.atan2(y.to(torch.float32), x.to(torch.float32))
     if l2:
         mag = torch.sqrt(gx * gx + gy * gy)
     else:
@@ -45,6 +61,7 @@ def gradient_magnitude_direction(gx: torch.Tensor, gy: torch.Tensor,
     return mag, torch.atan2(gy, gx)
 
 
+@at_x64_off
 def edge_detect(img: torch.Tensor, operator: str = "sobel",
                 scale: float | None = None) -> torch.Tensor:
     """|gx|+|gy| scaled and clamped to u8 (the reference's edge-detector

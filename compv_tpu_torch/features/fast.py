@@ -18,7 +18,7 @@ import torch
 from compv_tpu_torch.core.types import Keypoints
 from compv_tpu_torch.ops.kernels import fast_kernel
 from compv_tpu_torch.ops.kernels.fast_kernel import CIRCLE_OFFSETS
-from compv_tpu_torch.ops.topk import select_top_k_2d
+from compv_tpu_torch.ops.topk import top_k_2d
 
 __all__ = ["FastConfig", "fast_strengths", "fast_nms", "fast_detect",
            "CIRCLE_OFFSETS"]
@@ -57,7 +57,7 @@ def fast_detect(img: torch.Tensor, config: FastConfig = FastConfig()
     s = fast_kernel.fast_strengths_nms(img.contiguous(), config.threshold,
                                        config.n, nms=config.nms, as_f32=True)
     k = min(config.max_features, h * w)
-    vals, idx = select_top_k_2d(s, k)
+    vals, idx = top_k_2d(s, k)
     valid = vals > 0
     x = (idx % w).to(torch.float32)
     y = (idx // w).to(torch.float32)

@@ -85,13 +85,20 @@ def _normalize(vec: torch.Tensor, config: HogConfig) -> torch.Tensor:
 def hog_descriptor(img: torch.Tensor, config: HogConfig = HogConfig()
                    ) -> torch.Tensor:
     """(H, W) image -> (n_blocks_y, n_blocks_x, block^2 * nbins) float32.
-    The image is cropped to whole cells."""
+    The image is cropped to whole cells. One with fewer cells a side than
+    ``block_size - block_stride`` raises ``ValueError`` (the reference
+    fails inside there, or returns a block count of -1 as 0)."""
     if config.interp not in ("nearest", "bilinear", "bilinear_lut"):
         raise ValueError(config.interp)
     h, w = img.shape
     cs, nb = config.cell_size, config.nbins
     ch, cw = h // cs, w // cs
     hh, ww = ch * cs, cw * cs
+    bs, stride = config.block_size, config.block_stride
+    if min(ch, cw) < bs - stride:
+        raise ValueError(
+            f"a {h}x{w} image holds {ch}x{cw} cells of {cs} px, short of a "
+            f"{bs}x{bs}-cell block row or column")
 
     gx, gy = gradient_fast(img)
     gx, gy = gx[:hh, :ww], gy[:hh, :ww]

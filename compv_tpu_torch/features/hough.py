@@ -30,7 +30,7 @@ from compv_tpu_torch.features.hough_trig import theta_count, theta_table
 from compv_tpu_torch.ops.kernels import hough_kernel
 from compv_tpu_torch.ops.kernels.hough_kernel import (fma_f32, n_rho_bins,
                                                       rho_bins)
-from compv_tpu_torch.ops.topk import select_top_k, select_top_k_2d
+from compv_tpu_torch.ops.topk import top_k, top_k_2d
 
 __all__ = ["HoughShtConfig", "hough_sht", "hough_sht_stats",
            "hough_lines_to_cartesian", "HoughKhtConfig", "hough_kht"]
@@ -61,7 +61,7 @@ def _edge_list(edges: torch.Tensor, capacity: int,
     k = min(capacity, h * w)
     rank = (edges if strengths is None
             else torch.where(edges > 0, strengths, torch.zeros_like(strengths)))
-    vals, idx = select_top_k_2d(rank, k)
+    vals, idx = top_k_2d(rank, k)
     return ((idx % w).to(torch.float32), (idx // w).to(torch.float32),
             vals > 0)
 
@@ -112,7 +112,7 @@ def _acc_nms_topk(acc: torch.Tensor, threshold: torch.Tensor,
     cand_tbin = torch.arange(n_theta, dtype=torch.int32, device=dev)[
         :, None, None].expand(n_theta, nseg, 2).reshape(-1)
 
-    vals, idx = select_top_k(cand_vals, max_lines)
+    vals, idx = top_k(cand_vals, max_lines)
     valid = vals > 0
     tbin = cand_tbin[idx].to(torch.float32)
     rbin = cand_rbin[idx].to(torch.float32)
@@ -202,7 +202,7 @@ def hough_kht(edges: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     # +1 floor keeps edge pixels whose own gradient vanishes
     rank = torch.where(edges > 0, 1.0 + gx * gx + gy * gy,
                        torch.zeros_like(gx))
-    vk, ik = select_top_k_2d(rank, min(config.max_edge_points, h * w))
+    vk, ik = top_k_2d(rank, min(config.max_edge_points, h * w))
     x = (ik % w).to(torch.float32)
     y = (ik // w).to(torch.float32)
     valid = vk > 0

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from compv_tpu_torch.features.ccl import (extract_runs, label_components,
                                           label_components_seeded)
-from compv_tpu_torch.ops.topk import select_top_k
+from compv_tpu_torch.ops.topk import top_k
 
 __all__ = ["MserConfig", "MserResult", "mser_detect", "mser_region_mask",
            "mser_region_points"]
@@ -254,9 +254,14 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
     # ---------------- top-R regions: per-level top-R then global top-R
     r_cap = config.max_regions
     per = min(r_cap, cap)
-    neg, posi = select_top_k(-score, per)                 # (n_cand, per)
+    if n_cand * per < r_cap:        # the reference's top_k raises here
+        raise ValueError(
+            f"max_regions={r_cap} exceeds the {n_cand * per} candidate slots "
+            f"({n_cand} levels x {per}) of a {img.shape[0]}x{img.shape[1]} "
+            f"image")
+    neg, posi = top_k(-score, per)                 # (n_cand, per)
     flat_sc = (-neg).reshape(-1)
-    vals, sel = select_top_k(-flat_sc, r_cap)
+    vals, sel = top_k(-flat_sc, r_cap)
     valid = torch.isfinite(-vals)
     lvl_i = sel // per                                    # cand-level index
     slot = posi.reshape(-1)[sel]
@@ -349,7 +354,7 @@ def mser_region_points(mask: torch.Tensor, max_points: int = 4096):
     flat = mask.reshape(-1)
     rank = torch.where(flat, n - torch.arange(n, dtype=torch.int32,
                                               device=mask.device), 0)
-    vals, idx2 = select_top_k(rank, min(max_points, n))
+    vals, idx2 = top_k(rank, min(max_points, n))
     valid = vals > 0
     return ((idx2 % w).to(torch.int32) * valid,
             (idx2 // w).to(torch.int32) * valid, valid)

@@ -28,7 +28,7 @@ from compv_tpu_torch.image.scale import scale as scale_image
 from compv_tpu_torch.ops.bitops import pack_bits_to_bytes
 from compv_tpu_torch.ops.conv import gaussian_blur
 from compv_tpu_torch.ops.kernels import fast_kernel
-from compv_tpu_torch.ops.topk import select_top_k, select_top_k_2d
+from compv_tpu_torch.ops.topk import top_k, top_k_2d
 
 __all__ = ["OrbConfig", "brief_pattern", "patch_orientation", "brief_describe",
            "orb_detect_describe", "OrbResult"]
@@ -241,7 +241,7 @@ def orb_detect_describe(img: torch.Tensor, config: OrbConfig = OrbConfig()
         # border erase at the patch radius (orb_dete.cxx:318-323)
         s = torch.where(fast_kernel._interior(lh, lw, PATCH_RADIUS, dev), s, 0.0)
 
-        vals, idx = select_top_k_2d(s, k)
+        vals, idx = top_k_2d(s, k)
         valid = vals > 0
         lx = (idx % lw).to(torch.float32)
         ly = (idx // lw).to(torch.float32)
@@ -291,6 +291,6 @@ def orb_detect_describe(img: torch.Tensor, config: OrbConfig = OrbConfig()
     # global top max_features by strength
     kcap = min(config.max_features, kp_all.capacity)
     svals = torch.where(kp_all.valid, kp_all.strength, -torch.inf)
-    _, sel = select_top_k(svals, kcap)
+    _, sel = top_k(svals, kcap)
     return OrbResult(keypoints=kp_all._take(sel),
                      descriptors=desc_all.index_select(0, sel))

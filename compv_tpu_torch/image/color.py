@@ -23,10 +23,15 @@ repetition, the reference's branch off the TPU.
 
 Images are channel-last: gray (H, W) u8, RGB (H, W, 3) u8; planar YUV comes
 as separate planes.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
 import torch
+
+from compv_tpu_torch.core.types import at_x64_off
 
 __all__ = [
     "rgb_to_gray", "bgr_to_gray", "rgba_to_gray",
@@ -56,7 +61,8 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
 
 
 def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
-    return rgb_to_gray(bgr.flip(-1))
+    # reordered as int32: PyTorch's CUDA indexing has no uint16 / uint32
+    return rgb_to_gray(_i32(bgr)[..., [2, 1, 0]])
 
 
 def rgba_to_gray(rgba: torch.Tensor) -> torch.Tensor:
@@ -246,18 +252,22 @@ def rgb565_to_rgb(packed: torch.Tensor, little_endian: bool = True
 
 
 def rgb_to_rgb565(rgb: torch.Tensor) -> torch.Tensor:
-    """(H,W,3) u8 -> (H,W) u16 RGB565."""
-    c = _i32(rgb)
+    """(H,W,3) u8 -> (H,W) u16 RGB565. Each channel is cast to uint16
+    first, as the reference casts it (a negative or wider value wraps
+    modulo 2^16), in int64."""
+    c = rgb.to(torch.int64) & 0xFFFF
     v = ((c[..., 0] >> 3) << 11) | ((c[..., 1] >> 2) << 5) | (c[..., 2] >> 3)
-    return v.to(torch.uint16)
+    return (v & 0xFFFF).to(torch.uint16)
 
 
 # ---------------------------------------------------------------- split/merge
 
+@at_x64_off
 def split_channels(img: torch.Tensor):
     """(H,W,C) -> tuple of C (H,W) planes."""
     return tuple(img[..., i] for i in range(img.shape[-1]))
 
 
+@at_x64_off
 def merge_channels(*planes: torch.Tensor) -> torch.Tensor:
     return torch.stack(planes, dim=-1)

@@ -4,8 +4,12 @@ base/image/compv_image_integral.cxx).
 
 The reference's default ``dtype=jnp.float64`` means, with JAX's 64-bit
 mode off as on its TPU: int32 for an integer image, float32 otherwise. The
-port reads ``torch.float64`` the same way. ``torch.cumsum`` gets its dtype
-passed, since it returns int64 for an int32 input otherwise.
+port reads ``torch.float64`` the same way; any other dtype, and the image,
+follow the x64-off rule of every public entry (``core.types.x64_off_dtype``
+and ``at_x64_off``: float64 is float32, int64 int32). ``torch.cumsum``
+gets its dtype passed, since it returns int64 for an int32 input
+otherwise. ``box_sum`` of a uint16 or uint32 table wraps in its dtype, in
+int64 (PyTorch has no CPU ``-`` for them).
 
 Integer tables are exact, and so is ``box_mean_var``'s centred int32 path.
 Float32 prefix sums are not: XLA and PyTorch add in another order (on the
@@ -17,7 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from compv_tpu_torch.core.types import is_integer_dtype
+from compv_tpu_torch.core.types import (at_x64_off, is_integer_dtype,
+                                       x64_off_dtype)
+from compv_tpu_torch.math.ops import _wrap_to
 
 __all__ = ["integral", "integral_squared", "box_sum", "box_mean_var"]
 
@@ -25,9 +31,10 @@ __all__ = ["integral", "integral_squared", "box_sum", "box_mean_var"]
 def _table_dtype(img: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
     if dtype == torch.float64:      # the reference's default, x64 off
         return torch.int32 if is_integer_dtype(img.dtype) else torch.float32
-    return dtype
+    return x64_off_dtype(dtype)
 
 
+@at_x64_off
 def integral(img: torch.Tensor, dtype: torch.dtype = torch.float64
              ) -> torch.Tensor:
     """Integral image with a leading zero row and column: (..., H+1, W+1),
@@ -38,22 +45,28 @@ def integral(img: torch.Tensor, dtype: torch.dtype = torch.float64
     return F.pad(s, (1, 0, 1, 0))
 
 
+@at_x64_off
 def integral_squared(img: torch.Tensor, dtype: torch.dtype = torch.float64
                      ) -> torch.Tensor:
     """Integral image of the squared pixels (float32 by default)."""
-    if dtype == torch.float64:
-        dtype = torch.float32
+    dtype = x64_off_dtype(dtype)
     f = img.to(dtype)
     return integral(f * f, dtype)
 
 
+@at_x64_off
 def box_sum(int_img: torch.Tensor, size: int) -> torch.Tensor:
     """Sliding size x size window sums from an integral image: (H - size
     + 1, W - size + 1)."""
-    a = int_img[..., size:, size:]
-    b = int_img[..., size:, :-size]
-    c = int_img[..., :-size, size:]
-    d = int_img[..., :-size, :-size]
+    t = int_img
+    if t.dtype in (torch.uint16, torch.uint32):
+        t = t.to(torch.int64)
+    a = t[..., size:, size:]
+    b = t[..., size:, :-size]
+    c = t[..., :-size, size:]
+    d = t[..., :-size, :-size]
+    if t is not int_img:
+        return _wrap_to(a - b - c + d, int_img.dtype)
     return a - b - c + d
 
 
@@ -80,6 +93,7 @@ def _counts(h: int, w: int, r: int, dtype: torch.dtype, device
     return ch[:, None] * cw[None, :]
 
 
+@at_x64_off
 def box_mean_var(img: torch.Tensor, size: int):
     """Local mean and variance over clipped size x size windows, normalized
     by the true count: (mean f32, var f32). Exact centred int32 prefix

@@ -4,6 +4,9 @@ base/math/compv_math_morph.cxx). Each operator is the minimum or maximum
 over the structuring element's shifts of one padded buffer: integer images
 pad with 255 (erode) or 0 (dilate), float images with +inf / -inf, as the
 reference does. Exact on every device.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from compv_tpu_torch.core.types import is_integer_dtype
+from compv_tpu_torch.core.types import at_x64_off, is_integer_dtype
 
 __all__ = ["strel", "erode", "dilate", "open_", "close_", "morph_gradient",
            "top_hat", "black_hat"]
@@ -31,6 +34,8 @@ def strel(shape: str = "cross", size: int = 3) -> np.ndarray:
 
 
 def _morph(img: torch.Tensor, se, is_erode: bool) -> torch.Tensor:
+    if isinstance(se, torch.Tensor):    # a host constant, as in the
+        se = se.detach().cpu().numpy()  # reference; read where it lies
     se = np.asarray(se, bool)
     kh, kw = se.shape
     if is_integer_dtype(img.dtype):
@@ -50,18 +55,22 @@ def _morph(img: torch.Tensor, se, is_erode: bool) -> torch.Tensor:
     return acc.to(img.dtype)
 
 
+@at_x64_off
 def erode(img: torch.Tensor, se=None) -> torch.Tensor:
     return _morph(img, strel() if se is None else se, True)
 
 
+@at_x64_off
 def dilate(img: torch.Tensor, se=None) -> torch.Tensor:
     return _morph(img, strel() if se is None else se, False)
 
 
+@at_x64_off
 def open_(img: torch.Tensor, se=None) -> torch.Tensor:
     return dilate(erode(img, se), se)
 
 
+@at_x64_off
 def close_(img: torch.Tensor, se=None) -> torch.Tensor:
     return erode(dilate(img, se), se)
 
@@ -71,13 +80,16 @@ def _clipped_difference(a: torch.Tensor, b: torch.Tensor,
     return (a.to(torch.int32) - b.to(torch.int32)).clamp(0, 255).to(dtype)
 
 
+@at_x64_off
 def morph_gradient(img: torch.Tensor, se=None) -> torch.Tensor:
     return _clipped_difference(dilate(img, se), erode(img, se), img.dtype)
 
 
+@at_x64_off
 def top_hat(img: torch.Tensor, se=None) -> torch.Tensor:
     return _clipped_difference(img, open_(img, se), img.dtype)
 
 
+@at_x64_off
 def black_hat(img: torch.Tensor, se=None) -> torch.Tensor:
     return _clipped_difference(close_(img, se), img, img.dtype)

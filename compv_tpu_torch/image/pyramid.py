@@ -2,7 +2,11 @@
 reference CompVImageScalePyramid, compv_image_scale_pyramid.cxx:62,163).
 The size helpers are copies of the reference's pure-Python ones (a test
 proves each copy equal to the original); each level's size is
-round(dim * sf^lv), and each level is scaled from level 0, not cascaded."""
+round(dim * sf^lv), and each level is scaled from level 0, not cascaded.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -10,6 +14,7 @@ from typing import List
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.image.scale import scale
 
 __all__ = ["Pyramid", "pyramid_sizes", "build_pyramid", "scale_factors",
@@ -52,6 +57,7 @@ class Pyramid:
         return self.images[level]
 
 
+@at_x64_off
 def build_pyramid(img: torch.Tensor, levels: int = 8,
                   scale_factor: float = 0.83,
                   interpolation: str = "bilinear") -> Pyramid:

@@ -3,10 +3,15 @@
 base/image/compv_image_remap.cxx:417, and CompVImage::warpInverse,
 compv_image.h:74-75). A remap is a 2D gather and a lerp over the
 destination grid.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
 import torch
+
+from compv_tpu_torch.core.types import at_x64_off
 
 __all__ = ["remap_bilinear", "remap_nearest", "warp_perspective",
            "warp_affine"]
@@ -35,6 +40,7 @@ def _sample_bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     return torch.where(inside, out, fill)
 
 
+@at_x64_off
 def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor,
                    map_y: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
     """dst[i, j] = img(map_y[i, j], map_x[i, j]), bilinear (the reference's
@@ -47,6 +53,7 @@ def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor,
     return out.to(img.dtype)
 
 
+@at_x64_off
 def remap_nearest(img: torch.Tensor, map_x: torch.Tensor,
                   map_y: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
     h, w = img.shape[:2]
@@ -68,6 +75,7 @@ def _dst_grid(out_h: int, out_w: int, device):
     return xx, yy
 
 
+@at_x64_off
 def warp_perspective(img: torch.Tensor, h_dst_to_src: torch.Tensor,
                      out_h: int, out_w: int, fill: float = 0.0
                      ) -> torch.Tensor:
@@ -82,6 +90,7 @@ def warp_perspective(img: torch.Tensor, h_dst_to_src: torch.Tensor,
     return remap_bilinear(img, sx, sy, fill)
 
 
+@at_x64_off
 def warp_affine(img: torch.Tensor, m_dst_to_src: torch.Tensor,
                 out_h: int, out_w: int, fill: float = 0.0) -> torch.Tensor:
     """Affine warp with a (2, 3) dst -> src matrix."""

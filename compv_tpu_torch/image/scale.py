@@ -12,12 +12,16 @@ output, are bit-identical on CPU and CUDA.
 expanded canvas: each shear is a per-line roll (a barrel shifter of
 uniform rolls and selects, as the reference builds it) and a lerp between
 neighbouring integer shifts.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.image.remap import warp_affine
 
 __all__ = ["scale", "scale_bilinear", "scale_bicubic", "scale_nearest",
@@ -31,6 +35,7 @@ def _src_coords(dst_n: int, src_n: int, device) -> torch.Tensor:
     return (torch.arange(dst_n, dtype=torch.float32, device=device) + 0.5) * s - 0.5
 
 
+@at_x64_off
 def scale_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(H,W[,C]) u8/f32 -> (out_h,out_w[,C]) same dtype."""
     h, w = img.shape[:2]
@@ -57,6 +62,7 @@ def scale_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out.to(img.dtype)
 
 
+@at_x64_off
 def scale_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = img.shape[:2]
     ys = _src_coords(out_h, h, img.device).round().to(torch.int64).clamp(0, h - 1)
@@ -76,6 +82,7 @@ def _cubic_weights(t: torch.Tensor, a: float = -0.5):
     return w0, w1, w2, w3
 
 
+@at_x64_off
 def scale_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = img.shape[:2]
     f = img.to(torch.float32)
@@ -101,6 +108,7 @@ def scale_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out.to(img.dtype)
 
 
+@at_x64_off
 def scale(img: torch.Tensor, out_h: int, out_w: int,
           interpolation: str = "bilinear") -> torch.Tensor:
     """Facade matching CompVImage::scale (compv_image.cxx:852)."""
@@ -113,6 +121,7 @@ def scale(img: torch.Tensor, out_h: int, out_w: int,
     raise ValueError(f"unknown interpolation {interpolation!r}")
 
 
+@at_x64_off
 def rotate_bilinear(img: torch.Tensor, angle_deg) -> torch.Tensor:
     """Rotate about the image center with bilinear sampling (the
     reference's rotate benchmark, through a warp)."""
@@ -159,6 +168,7 @@ def _shear(x: torch.Tensor, factor: torch.Tensor, axis: int) -> torch.Tensor:
     return a * (1.0 - fm) + b * fm
 
 
+@at_x64_off
 def rotate_fast(img: torch.Tensor, angle_deg) -> torch.Tensor:
     """Rotation by three shears on an expanded canvas: shear_x(-tan(a/2)),
     shear_y(sin a), shear_x(-tan(a/2)). ``angle_deg`` in [-45, 45] (a

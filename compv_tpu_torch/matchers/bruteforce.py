@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from compv_tpu_torch.core.types import Matches
-from compv_tpu_torch.ops.topk import select_top_k
+from compv_tpu_torch.ops.topk import top_k
 
 __all__ = ["MatcherConfig", "hamming_distance_matrix", "knn_match",
            "match_bruteforce", "ratio_test"]
@@ -43,12 +43,17 @@ def knn_match(query_bits: torch.Tensor, train_bits: torch.Tensor,
               query_valid: torch.Tensor | None = None,
               train_valid: torch.Tensor | None = None, k: int = 2) -> Matches:
     """K nearest train descriptors per query, in the (K, Nq) layout of the
-    reference's Mat<CompVDMatch>(knn x Nq) (matcher_bruteforce.cxx:104)."""
+    reference's Mat<CompVDMatch>(knn x Nq) (matcher_bruteforce.cxx:104).
+    ``k`` larger than the train set raises ``ValueError``, as the
+    reference's ``lax.top_k`` does."""
+    if k > train_bits.shape[0]:
+        raise ValueError(f"knn_match: k={k} exceeds the "
+                         f"{train_bits.shape[0]} train descriptors")
     d = hamming_distance_matrix(query_bits, train_bits)
     big = 1 << 30
     if train_valid is not None:
         d = torch.where(train_valid[None, :], d, big)
-    vals, idx = select_top_k(-d, k)          # (Nq, k)
+    vals, idx = top_k(-d, k)          # (Nq, k)
     dist = (-vals).to(torch.float32)
     valid = vals > -big
     if query_valid is not None:
@@ -80,8 +85,11 @@ def match_bruteforce(query_bits: torch.Tensor, train_bits: torch.Tensor,
 def ratio_test(matches: Matches, ratio: float = 0.67) -> torch.Tensor:
     """Lowe ratio test over queries: d1 < ratio * d2, with the ratio rounded
     to f32 as the reference multiplies it (object-recognition sample uses
-    0.67). Requires knn >= 2. Returns (Nq,) bool."""
+    0.67). Returns (Nq,) bool. Of a knn = 1 set the reference reads row 1
+    as row 0 (JAX clamps an index past the end), so every query fails;
+    the port reads it the same way."""
+    second = min(1, matches.distance.shape[0] - 1)
     d1 = matches.distance[0]
-    d2 = matches.distance[1]
-    return (matches.valid[0] & matches.valid[1]
+    d2 = matches.distance[second]
+    return (matches.valid[0] & matches.valid[second]
             & (d1 < float(np.float32(ratio)) * d2))

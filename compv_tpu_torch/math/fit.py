@@ -8,6 +8,13 @@ solver's (LAPACK, cuSOLVER and XLA may each return either), so (a, b, c)
 is defined up to sign, as in the reference. The parabola's is a
 least-squares solve of the inliers' Vandermonde system (full rank and
 tall, which the card's only ``lstsq`` driver, ``gels``, needs).
+
+Integer points follow the reference's promotion. The line's arithmetic is
+float32, but for each sample's normal (-dy, dx), which the reference takes
+in the points' dtype. The parabola's squares x * x are taken in the
+points' dtype too, and its solves in float32. Both wrap past the dtype's
+range, as ``jnp`` does. Every entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ from typing import NamedTuple
 import torch
 
 from compv_tpu_torch.calib.ransac import RansacConfig, ransac
+from compv_tpu_torch.core.types import (at_x64_off, float_points,
+                                       is_integer_dtype)
 from compv_tpu_torch.math.distance import dist_line, dist_parabola
+from compv_tpu_torch.math.ops import _wrap
 
 __all__ = ["LineFit", "ParabolaFit", "fit_line", "fit_parabola"]
 
@@ -35,6 +45,7 @@ class ParabolaFit(NamedTuple):
 
 def _tls_line(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Total least squares line through the masked points."""
+    pts = float_points(pts)
     m = mask.to(pts.dtype)[:, None]
     n = m.sum().clamp_min(1.0)
     mu = (pts * m).sum(dim=0) / n
@@ -46,8 +57,13 @@ def _tls_line(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _line_through(sub: torch.Tensor) -> torch.Tensor:
     p, q = sub[0], sub[1]
-    d = q - p
-    nv = torch.stack([-d[1], d[0]])
+    if is_integer_dtype(sub.dtype):     # the normal in the points' dtype
+        d = _wrap(q.to(torch.int64) - p.to(torch.int64), sub.dtype)
+        nv = _wrap(torch.stack([-d[1], d[0]]), sub.dtype).to(torch.float32)
+        p = p.to(torch.float32)
+    else:
+        d = q - p
+        nv = torch.stack([-d[1], d[0]])
     nv = nv / torch.linalg.vector_norm(nv).clamp_min(1e-12)
     return torch.cat([nv, -(nv * p).sum()[None]])
 
@@ -57,6 +73,7 @@ def _line_residuals(model: torch.Tensor, points: torch.Tensor
     return dist_line(points, model[0], model[1], model[2])
 
 
+@at_x64_off
 def fit_line(pts: torch.Tensor, mask: torch.Tensor | None = None,
              threshold: float = 1.0, num_hypotheses: int = 256,
              seed: int = 0) -> LineFit:
@@ -83,9 +100,9 @@ def _parabola_through(sub: torch.Tensor) -> torch.Tensor:
     there (no raise, no read of ``info``), and ransac's finiteness guard
     drops the hypothesis, as the reference's ``jnp.linalg.solve`` does."""
     x, y = sub[:, 0], sub[:, 1]
-    v = torch.stack([x * x, x, torch.ones_like(x)], dim=1)
+    v = float_points(torch.stack([x * x, x, torch.ones_like(x)], dim=1))
     eye = torch.eye(3, dtype=v.dtype, device=v.device)
-    return torch.linalg.solve_ex(v + 1e-12 * eye, y).result
+    return torch.linalg.solve_ex(v + 1e-12 * eye, float_points(y)).result
 
 
 def _parabola_residuals(model: torch.Tensor, points: torch.Tensor
@@ -93,6 +110,7 @@ def _parabola_residuals(model: torch.Tensor, points: torch.Tensor
     return dist_parabola(points, model[0], model[1], model[2])
 
 
+@at_x64_off
 def fit_parabola(pts: torch.Tensor, mask: torch.Tensor | None = None,
                  threshold: float = 1.0, num_hypotheses: int = 256,
                  axis: str = "x", seed: int = 0) -> ParabolaFit:
@@ -100,14 +118,15 @@ def fit_parabola(pts: torch.Tensor, mask: torch.Tensor | None = None,
     if mask is None:
         mask = torch.ones((pts.shape[0],), dtype=torch.bool,
                           device=pts.device)
-    pts_f = pts.flip(1) if axis == "y" else pts
+    pts_f = pts[:, [1, 0]] if axis == "y" else pts
     r = ransac(pts_f, _parabola_through, _parabola_residuals, mask,
                RansacConfig(num_hypotheses=num_hypotheses, min_model_points=3,
                             threshold=threshold, seed=seed))
     m = r.inliers.to(pts_f.dtype)
     x, y = pts_f[:, 0], pts_f[:, 1]
-    v = torch.stack([x * x, x, torch.ones_like(x)], dim=1) * m[:, None]
-    sol = torch.linalg.lstsq(v, (y * m)[:, None]).solution[:, 0]
+    v = float_points(torch.stack([x * x, x, torch.ones_like(x)], dim=1)
+                     * m[:, None])
+    sol = torch.linalg.lstsq(v, float_points(y * m)[:, None]).solution[:, 0]
     inl = (dist_parabola(pts_f, sol[0], sol[1], sol[2]) < threshold) & mask
     better = inl.sum() >= r.num_inliers
     model = torch.where(better, sol, r.model)

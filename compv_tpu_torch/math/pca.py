@@ -2,7 +2,8 @@
 CompVMathPCA, base/math/compv_math_pca.cxx): mean and principal axes by the
 covariance's ``eigh``, projection, back-projection, save / load. The JSON
 files are the reference's format: either package loads the other's.
-Principal axes agree with the reference's up to sign.
+Principal axes agree with the reference's up to sign. Every entry takes
+float64 as float32 and int64 as int32 (``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.device import require_cuda
 
 __all__ = ["PcaModel", "pca_compute", "pca_project", "pca_backproject",
@@ -23,6 +25,7 @@ class PcaModel(NamedTuple):
     values: torch.Tensor      # (K,) eigenvalues, descending
 
 
+@at_x64_off
 def pca_compute(data: torch.Tensor, num_components: int) -> PcaModel:
     """(N, D) observations -> the top-K PCA model."""
     mean = data.mean(dim=0)
@@ -36,11 +39,13 @@ def pca_compute(data: torch.Tensor, num_components: int) -> PcaModel:
     return PcaModel(mean=mean, vectors=vecs.T.contiguous(), values=vals)
 
 
+@at_x64_off
 def pca_project(model: PcaModel, data: torch.Tensor) -> torch.Tensor:
     """(N, D) -> (N, K)."""
     return (data - model.mean) @ model.vectors.T
 
 
+@at_x64_off
 def pca_backproject(model: PcaModel, proj: torch.Tensor) -> torch.Tensor:
     """(N, K) -> (N, D)."""
     return proj @ model.vectors + model.mean

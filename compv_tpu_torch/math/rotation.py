@@ -1,10 +1,16 @@
 """Axis-angle rotations (``compv_tpu/slam/ba.py``'s rotation helpers,
 re-exported by ``slam/ba.py``). They live here, below both ``calib`` and
 ``slam``, so that the RANSAC modules can use them without importing the SLAM
-package. Both take leading batch dimensions."""
+package. Both take leading batch dimensions.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
+"""
 from __future__ import annotations
 
 import torch
+
+from compv_tpu_torch.core.types import at_x64_off
 
 __all__ = ["rodrigues_to_matrix", "matrix_to_rodrigues"]
 
@@ -18,6 +24,7 @@ def _skew(w: torch.Tensor) -> torch.Tensor:
                         torch.stack([-wy, wx, z], -1)], -2)
 
 
+@at_x64_off(floats=("rvec",))
 def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
     """Axis-angle (..., 3) -> rotation matrices (..., 3, 3)
     (CompVMathTrig::rodriguesVectorToMatrix, compv_math_trig.h:22-35).
@@ -38,6 +45,7 @@ def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * km + b[..., None, None] * (km @ km)
 
 
+@at_x64_off(floats=("r",))
 def matrix_to_rodrigues(r: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> axis-angle (..., 3). Three
     select-safe branches: the small-angle series, the general w theta /

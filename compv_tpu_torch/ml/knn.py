@@ -5,7 +5,7 @@ annoy, base/include/compv/base/ml/compv_base_ml_knn.h:19-47).
 Exact search is a distance matmul and a top-k; the ANN index hashes each
 vector to the signs of its products with random hyperplanes and evaluates
 exact distances on a shortlist of the nearest codes. Every top-k is the
-port's stable ``select_top_k``: the lower index first among equal values,
+port's stable ``top_k``: the lower index first among equal values,
 as ``lax.top_k`` does. That matters most for the shortlist, a top-k over
 small integer popcounts where ties are the rule.
 
@@ -24,7 +24,7 @@ import torch
 from compv_tpu_torch.device import require_cuda
 from compv_tpu_torch.math.distance import squared_l2
 from compv_tpu_torch.ops import threefry
-from compv_tpu_torch.ops.topk import select_top_k
+from compv_tpu_torch.ops.topk import top_k
 
 __all__ = ["KnnIndex", "knn_build", "knn_search", "knn_save_json",
            "knn_load_json", "AnnConfig", "AnnIndex", "ann_build",
@@ -52,10 +52,10 @@ def knn_search(index: KnnIndex, queries: torch.Tensor, k: int):
     """Exact top-k: (indices (M, k) int32, distances (M, k) float32)."""
     q = queries.to(torch.float32)
     if index.norm == "angular":
-        vals, idx = select_top_k(_unit_rows(q) @ index.vectors.T, k)
+        vals, idx = top_k(_unit_rows(q) @ index.vectors.T, k)
         return idx.to(torch.int32), torch.sqrt(
             torch.clamp_min(2.0 - 2.0 * vals, 0.0))
-    vals, idx = select_top_k(-squared_l2(q, index.vectors), k)
+    vals, idx = top_k(-squared_l2(q, index.vectors), k)
     return idx.to(torch.int32), torch.sqrt(torch.clamp_min(-vals, 0.0))
 
 
@@ -124,7 +124,7 @@ def ann_search(index: AnnIndex, queries: torch.Tensor, k: int,
     for b in range(p):
         pc += (xor >> b) & 1
     c = min(config.candidates, index.vectors.shape[0])
-    cand = select_top_k(-pc, c)[1]                   # (M, c)
+    cand = top_k(-pc, c)[1]                   # (M, c)
     d = index.vectors.shape[1]
     step = max(1, _CHUNK_FLOATS // (c * d))
     idx, dist = [], []
@@ -132,7 +132,7 @@ def ann_search(index: AnnIndex, queries: torch.Tensor, k: int,
         cidx = cand[s:s + step]
         sub = index.vectors[cidx]                    # (m, c, D)
         diff = sub - q[s:s + step, None, :]
-        vals, loc = select_top_k(-(diff * diff).sum(dim=2), k)
+        vals, loc = top_k(-(diff * diff).sum(dim=2), k)
         idx.append(torch.gather(cidx, 1, loc))
         dist.append(torch.sqrt(torch.clamp_min(-vals, 0.0)))
     return torch.cat(idx).to(torch.int32), torch.cat(dist)

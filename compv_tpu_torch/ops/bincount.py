@@ -14,9 +14,11 @@ __all__ = ["batched_weighted_bincount"]
 
 
 def batched_weighted_bincount(bins: torch.Tensor, weights: torch.Tensor,
-                              n_bins: int) -> torch.Tensor:
+                              n_bins: int, chunk_a: int = 4) -> torch.Tensor:
     """(A, E) integer bins in [0, n_bins), (A, E) integer weights ->
-    (A, n_bins) i32 weighted counts. Rows are independent histograms."""
+    (A, n_bins) i32 weighted counts. Rows are independent histograms.
+    ``chunk_a`` (rows a step of the reference's matmul scan) is accepted
+    and ignored: the scatter-add takes every row at once."""
     if bins.ndim != 2 or weights.shape != bins.shape:
         raise ValueError(f"bins and weights must be (A, E) of one shape, got "
                          f"{tuple(bins.shape)} and {tuple(weights.shape)}")

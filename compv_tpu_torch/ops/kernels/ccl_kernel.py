@@ -180,7 +180,8 @@ def _flat_index(h: int, w: int, device) -> torch.Tensor:
 
 def _foreground(binary: torch.Tensor) -> torch.Tensor:
     """(H, W) mask the kernel reads as bytes (non-zero = foreground): the
-    input itself when it is u8 or bool, else ``binary > 0``."""
+    input itself when it is u8 or bool, else ``binary > 0`` (uint16 and
+    uint32 compared in int64: PyTorch has no ``>`` for them)."""
     if not isinstance(binary, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(binary).__name__}")
     if binary.ndim != 2:
@@ -192,6 +193,8 @@ def _foreground(binary: torch.Tensor) -> torch.Tensor:
         raise ValueError("image too large for i32 flat labels")
     if binary.dtype in (torch.uint8, torch.bool):
         return binary.contiguous()
+    if binary.dtype in (torch.uint16, torch.uint32):
+        binary = binary.to(torch.int64)
     return (binary > 0).contiguous()
 
 
@@ -211,9 +214,14 @@ def _raise_on(rc: int, entry: str) -> None:
 
 
 def ccl_label(binary: torch.Tensor, connectivity: int = 8,
-              max_iterations: int = 64) -> torch.Tensor:
+              max_iter: int = 96, jump_every: int = 3, jump_dists: tuple = (),
+              *, max_iterations: int = 64) -> torch.Tensor:
     """K2a: (H, W) mask (foreground where non-zero) -> (H, W) i32 labels,
-    the minimum flat index of each component, -1 at background."""
+    the minimum flat index of each component, -1 at background.
+    ``max_iter``, ``jump_every`` and ``jump_dists`` (the Pallas labeler's
+    iteration cap and pointer-jump schedule) are accepted and ignored: K2a
+    runs until its union-find converges. ``max_iterations`` caps the CPU
+    twin's pointer stage, which raises past it."""
     fg = _foreground(binary)
     _connectivity(connectivity)
     h, w = fg.shape
@@ -233,11 +241,14 @@ def ccl_label(binary: torch.Tensor, connectivity: int = 8,
 
 
 def ccl_label_seeded(binary: torch.Tensor, init: torch.Tensor,
-                     connectivity: int = 8, max_iterations: int = 64
-                     ) -> torch.Tensor:
+                     connectivity: int = 8, max_iter: int = 96,
+                     jump_every: int = 3, jump_dists: tuple = (), *,
+                     max_iterations: int = 64) -> torch.Tensor:
     """K2b: (H, W) mask + (H, W) i32 init (own flat index, or the label of
     an earlier nested level, at each foreground pixel) -> (H, W) i32 minimum
-    of init over each component, -1 at background."""
+    of init over each component, -1 at background. The Pallas labeler's
+    ``max_iter``, ``jump_every`` and ``jump_dists`` are accepted and
+    ignored, ``max_iterations`` as in ``ccl_label``."""
     fg = _foreground(binary)
     _connectivity(connectivity)
     h, w = fg.shape

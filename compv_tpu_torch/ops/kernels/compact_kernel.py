@@ -111,10 +111,11 @@ def compact_ref(a: torch.Tensor, b: torch.Tensor, counts: torch.Tensor,
 
 
 def compact_rows(a: torch.Tensor, b: torch.Tensor, counts: torch.Tensor,
-                 cap8: int):
+                 cap8: int, rows_per_step: int = 8):
     """K3: compact two aligned (H, K) i32 record tables by their per-row
     valid counts. Returns (a_flat (cap8*8,), b_flat (cap8*8,), total () i32,
-    ok () bool)."""
+    ok () bool). ``rows_per_step`` (rows a step of the Pallas grid) is
+    accepted and ignored: K3 takes a row a warp."""
     _check(a, b, counts, cap8)
     if a.device.type == "cpu":
         return compact_ref(a, b, counts, cap8)

@@ -217,10 +217,11 @@ def _raise_on(rc: int, entry: str) -> None:
 
 
 def fast_strengths_nms(img: torch.Tensor, threshold: int = 20, n: int = 9,
-                       nms: bool = True, as_f32: bool = False
-                       ) -> torch.Tensor:
+                       nms: bool = True, interpret: bool = False,
+                       as_f32: bool = False) -> torch.Tensor:
     """(H, W) u8 -> (H, W) FAST-n strengths map, with strict 3x3 NMS when
-    ``nms``; u8, or f32 when ``as_f32``. K1's signature and output types."""
+    ``nms``; u8, or f32 when ``as_f32``. K1's signature and output types;
+    ``interpret`` (Pallas's interpreter) is accepted and ignored."""
     global launches
     _check(img, threshold, n)
     if img.device.type == "cpu":

@@ -31,6 +31,9 @@ the same update. ``ba_step_reduce_scatter`` shards the CG state instead.
 
 Left out: the TPU's camera one-hot (``_cam_onehot``: the reference builds it
 only on a TPU).
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.math.rotation import (matrix_to_rodrigues,
                                            rodrigues_to_matrix)
 
@@ -85,6 +89,7 @@ def _pinhole(pc: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], -1)
 
 
+@at_x64_off(floats=("cameras", "landmarks", "intrinsics"))
 def project_points(cameras: torch.Tensor, landmarks: torch.Tensor,
                    intrinsics: torch.Tensor, cam_idx: torch.Tensor,
                    lm_idx: torch.Tensor) -> torch.Tensor:
@@ -96,6 +101,7 @@ def project_points(cameras: torch.Tensor, landmarks: torch.Tensor,
     return _pinhole(pc, intrinsics)
 
 
+@at_x64_off(floats=("cameras", "landmarks"))
 def ba_residuals(cameras: torch.Tensor, landmarks: torch.Tensor,
                  prob: BAProblem) -> torch.Tensor:
     """(O, 2) reprojection residuals, zero at invalid observations."""
@@ -104,6 +110,7 @@ def ba_residuals(cameras: torch.Tensor, landmarks: torch.Tensor,
     return torch.where(prob.valid[:, None], pred - prob.uv, 0.0)
 
 
+@at_x64_off
 def reproj_rmse(prob: BAProblem) -> torch.Tensor:
     r = ba_residuals(prob.cameras, prob.landmarks, prob)
     n = prob.valid.sum().clamp_min(1)
@@ -112,6 +119,7 @@ def reproj_rmse(prob: BAProblem) -> torch.Tensor:
 
 # ----------------------------------------------------------------- blocks
 
+@at_x64_off(floats=("cameras", "landmarks", "intrinsics", "uv"))
 def obs_jacobian_blocks(cameras, landmarks, intrinsics, cam_idx, lm_idx,
                         uv, valid):
     """Per-observation residual r (O, 2) and Jacobian blocks A = dr/dcam
@@ -289,10 +297,12 @@ def _psum(mesh):
     return lambda x: ordered_sum(x, mesh)
 
 
+@at_x64_off
 def ba_step(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig,
-            psum_axis=None, *, cam_mask=None, tables: _Tables | None = None):
+            psum_axis=None, cam_mask=None, *, tables: _Tables | None = None):
     """One damped-GN step. Returns (new BAProblem, new lambda,
-    cost_before). ``tables`` are the observation tables of ``prob``'s
+    cost_before). ``cam_mask`` (F,) bool freezes the False cameras, fifth
+    by position as in the reference. ``tables`` are the observation tables of ``prob``'s
     indices (``ba_solve`` builds them once per solve); without them the
     step builds its own. With ``psum_axis`` (a ``FrameMesh``) ``prob``
     holds this rank's observations, and every sum over observations is
@@ -359,6 +369,7 @@ def _accept(prob, cams1, lms1, w, lam, cost, psum):
     return prob._replace(cameras=cams, landmarks=lms), lam_new, cost
 
 
+@at_x64_off
 def ba_step_reduce_scatter(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig,
                            axis):
     """One damped-GN step with the CG state sharded over ``axis`` (a
@@ -423,6 +434,7 @@ def ba_step_reduce_scatter(prob: BAProblem, lam: torch.Tensor, cfg: BAConfig,
     return _accept(prob, cams1, lms1, w, lam, cost, psum)
 
 
+@at_x64_off
 def ba_solve(prob: BAProblem, cfg: BAConfig = BAConfig(), cam_mask=None):
     """The damped-GN loop. Returns (problem, final cost). ``cam_mask`` (F,)
     bool freezes the False cameras (windowed BA). The observation tables

@@ -39,6 +39,9 @@ product is bilinear); with ``SchurConfig.lm_partitioned`` (each landmark's
 observations on one rank) the products are rank-local and S and its
 right-hand side are summed after them. The sums carry float64, as the
 local step holds.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.slam.ba import (BAProblem, _Tables, _psum,
                                      _robust_weights, ba_residuals,
                                      index_table, inv3x3_spd,
@@ -92,6 +96,7 @@ def _schur_tables(prob: BAProblem, k: int) -> _Tables:
                                     prob.cam_idx.shape[0])[0])
 
 
+@at_x64_off
 def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig,
                   psum_axis=None, *, max_obs_per_lm: int = 16, cam_mask=None,
                   tables: _Tables | None = None):
@@ -234,6 +239,7 @@ def ba_step_schur(prob: BAProblem, lam: torch.Tensor, cfg: SchurConfig,
     return prob._replace(cameras=cams, landmarks=lms), lam_new, cost
 
 
+@at_x64_off
 def ba_solve_schur(prob: BAProblem, cfg: SchurConfig = SchurConfig(),
                    cam_mask=None):
     """Damped-GN loop of Schur steps. Returns (problem, final cost). Sizes

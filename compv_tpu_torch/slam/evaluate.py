@@ -1,14 +1,21 @@
 """Trajectory evaluation, ATE and RPE (mirror of
 ``compv_tpu/slam/evaluate.py``): RMSE of the translational error after a
 Umeyama Sim(3) / SE(3) alignment of the estimated trajectory to the ground
-truth (TUM benchmark definitions)."""
+truth (TUM benchmark definitions).
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
+"""
 from __future__ import annotations
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
+
 __all__ = ["umeyama_alignment", "ate_rmse", "rpe_rmse"]
 
 
+@at_x64_off(floats=("est", "gt"))
 def umeyama_alignment(est: torch.Tensor, gt: torch.Tensor,
                       with_scale: bool = True):
     """Least-squares similarity aligning est -> gt, (N, 3) each. Returns
@@ -31,6 +38,7 @@ def umeyama_alignment(est: torch.Tensor, gt: torch.Tensor,
     return scale, r, t
 
 
+@at_x64_off(floats=("est", "gt"))
 def ate_rmse(est: torch.Tensor, gt: torch.Tensor, with_scale: bool = True):
     """Absolute trajectory error RMSE after alignment, (N, 3) positions."""
     scale, r, t = umeyama_alignment(est, gt, with_scale)
@@ -38,6 +46,7 @@ def ate_rmse(est: torch.Tensor, gt: torch.Tensor, with_scale: bool = True):
     return (err * err).sum(dim=1).mean().sqrt()
 
 
+@at_x64_off(floats=("est", "gt"))
 def rpe_rmse(est: torch.Tensor, gt: torch.Tensor, delta: int = 1,
              align: bool = True, with_scale: bool = True):
     """Relative pose (translation) error RMSE over steps of ``delta``,

@@ -10,6 +10,9 @@ reference's: it reads each pair's inlier count and homography there (one
 wait for the device per frame), and every per-frame computation runs on
 the frames' device. ORB runs the FAST kernel (K1) on each pyramid level
 of each frame on the card.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.calib.homography import HomographyConfig, find_homography
 from compv_tpu_torch.device import require_cuda
 from compv_tpu_torch.features.orb import (OrbConfig, OrbResult,
@@ -102,6 +106,7 @@ def track_planar_sequence(frames, config: PlanarTrackerConfig =
     return PlanarTrackResult(h_to_first=hs, num_inliers=inl, tracked=tracked)
 
 
+@at_x64_off(floats=("h", "k"))
 def decompose_homography(h: torch.Tensor, k: torch.Tensor):
     """Planar H = K (R + t n^T / d) K^-1 under a fronto-parallel prior,
     n = (0, 0, 1): returns (rvec, t / d, n). R is the nearest rotation to

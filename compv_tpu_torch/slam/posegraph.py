@@ -24,6 +24,9 @@ sum goes through per-node tables of edges (``slam.ba.index_table`` /
 every run (the reference's vjp scatter-adds; on the card an
 ``index_add_`` would sum in a run-to-run order). The loops (steps, CG
 iterations) never wait on the device.
+
+Every public entry takes float64 as float32 and int64 as int32
+(``core.types.at_x64_off``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.math.rotation import (matrix_to_rodrigues,
                                            rodrigues_to_matrix)
 from compv_tpu_torch.slam.ba import index_table, segment_sum
@@ -40,6 +44,7 @@ __all__ = ["PoseGraph", "PoseGraphConfig", "compose", "invert",
            "relative_pose", "optimize_pose_graph", "graph_residuals"]
 
 
+@at_x64_off(floats=("rvec_a", "tvec_a", "rvec_b", "tvec_b"))
 def compose(rvec_a, tvec_a, rvec_b, tvec_b):
     """T_a . T_b as (rvec, tvec): R = Ra Rb, t = Ra tb + ta."""
     ra = rodrigues_to_matrix(rvec_a)
@@ -48,11 +53,13 @@ def compose(rvec_a, tvec_a, rvec_b, tvec_b):
     return matrix_to_rodrigues(ra @ rb), t
 
 
+@at_x64_off(floats=("rvec", "tvec"))
 def invert(rvec, tvec):
     rt = rodrigues_to_matrix(rvec).transpose(-1, -2)
     return matrix_to_rodrigues(rt), -(rt @ tvec[..., None])[..., 0]
 
 
+@at_x64_off(floats=("rvec_i", "tvec_i", "rvec_j", "tvec_j"))
 def relative_pose(rvec_i, tvec_i, rvec_j, tvec_j):
     """T_i^-1 . T_j (what an odometry edge stores)."""
     ri, ti = invert(rvec_i, tvec_i)
@@ -90,6 +97,7 @@ def _residual_mat(r_i, t_i, r_j, t_j, r_m, t_m):
     return torch.cat([rot, t_err], dim=-1)
 
 
+@at_x64_off(floats=("poses",))
 def graph_residuals(poses: torch.Tensor, graph: PoseGraph) -> torch.Tensor:
     """(E, 12) weighted residuals at ``poses``, zero at invalid edges."""
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
@@ -118,6 +126,7 @@ def _cg(matvec, b, iters: int):
     return x
 
 
+@at_x64_off
 def optimize_pose_graph(graph: PoseGraph,
                         config: PoseGraphConfig = PoseGraphConfig()):
     """Damped GN with CG on local pose increments; pose 0 fixed. Returns

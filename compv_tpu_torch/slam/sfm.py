@@ -649,18 +649,19 @@ def _finalize_sfm(cams, landmarks, lm_valid, ob_ci, ob_li, ob_uv, ob_ok,
                      frame_stats=frame_stats)
 
 
-def resume_sfm(checkpoint, config: SfmConfig = SfmConfig(),
-               device=None, mesh=None) -> SfmResult:
+def resume_sfm(checkpoint_path, config: SfmConfig = SfmConfig(), mesh=None,
+               *, device=None) -> SfmResult:
     """Finish an SfM run from its mid-sequence state: the final global BA,
-    the prune and the re-solve. ``checkpoint`` is the path of a checkpoint
-    that ``run_sfm(..., checkpoint_dir=...)`` wrote, or such a state as a
-    dict of tensors (``interop.sfm_state_from_numpy`` makes one from the
-    JAX package's checkpoint). With ``mesh`` (a ``FrameMesh``, called by
-    every rank) the final BA runs distributed over its ranks, on
-    ``mesh.device``, whatever group size wrote the checkpoint."""
+    the prune and the re-solve. ``checkpoint_path`` is the path of a
+    checkpoint that ``run_sfm(..., checkpoint_dir=...)`` wrote, or such a
+    state as a dict of tensors (``interop.sfm_state_from_numpy`` makes one
+    from the JAX package's checkpoint). With ``mesh`` (a ``FrameMesh``,
+    called by every rank) the final BA runs distributed over its ranks, on
+    ``mesh.device``, whatever group size wrote the checkpoint; without it
+    on ``device``."""
     dev = mesh.device if mesh is not None else _device(device)
-    st = load_checkpoint(checkpoint) if isinstance(checkpoint, str) \
-        else checkpoint
+    st = load_checkpoint(checkpoint_path) \
+        if isinstance(checkpoint_path, str) else checkpoint_path
     st = {name: _np(torch.as_tensor(st[name]).to(dtype))
           for name, dtype in STATE_DTYPES.items()}
     return _finalize_sfm(st["cams"], st["landmarks"], st["lm_valid"],

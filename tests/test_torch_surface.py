@@ -12,6 +12,13 @@ with its reason, and a case checks that each of them is still missing
 one that every program of ``examples/`` has its port in
 ``examples_torch/``.
 
+The signature case holds parameters too: every parameter of a reference
+callable is one of the port's under its name, a positional one at its
+place, with a default where the reference has one; the port's own
+parameters come after them. ``SIGNATURE_EXCEPTIONS`` lists the callables
+that differ on purpose, each with its reason, and a case checks that each
+still does.
+
 The reference's modules are imported on the CPU (this suite's conftest
 pins JAX there); nothing here imports the reference from the port.
 """
@@ -41,6 +48,62 @@ EXCEPTIONS = {
         "return background as -1, and the port's keeps its sentinels "
         "private",
 }
+
+
+# (reference module, name) -> why its parameters are not the port's
+SIGNATURE_EXCEPTIONS = {
+    ("compv_tpu.ops.pallas.hough_kernel", "sht_accumulate_pallas"):
+        "K4's wrapper takes the (n_theta,) f32 trig table (cos_t, sin_t) in "
+        "place of theta_step, w_img and h_img, from which the Pallas kernel "
+        "builds its own: the table's f32 values decide the bins",
+    ("compv_tpu.slam.ba", "obs_jacobian_blocks"):
+        "onehot_c is the TPU's (O, F) camera one-hot for its MXU "
+        "contraction; the port gathers each observation's camera by index",
+}
+
+
+def _signature_problems(ref, port) -> list:
+    """How ``port``'s parameters fail to take a call written against
+    ``ref``'s (empty: they take every one)."""
+    import inspect
+    try:
+        rs = inspect.signature(ref)
+        ps = inspect.signature(port)
+    except (TypeError, ValueError):
+        return []                   # no readable signature (a builtin)
+    want = [p for p in rs.parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+    got = list(ps.parameters.values())
+    var_kw = any(p.kind == p.VAR_KEYWORD for p in got)
+    out = []
+    for i, p in enumerate(want):
+        q = ps.parameters.get(p.name)
+        if q is None:
+            if not var_kw:
+                out.append(f"no parameter {p.name}")
+            continue
+        if p.kind != p.KEYWORD_ONLY and (
+                q.kind == q.KEYWORD_ONLY or i >= len(got)
+                or got[i].name != p.name):
+            out.append(f"{p.name} is not parameter {i}")
+        if p.default is not p.empty and q.default is q.empty:
+            out.append(f"{p.name} has no default")
+    if any(p.kind == p.VAR_POSITIONAL for p in rs.parameters.values()) and \
+            not any(q.kind == q.VAR_POSITIONAL for q in got):
+        out.append("no *args")
+    return out
+
+
+def _callables(mod: str):
+    """(name, reference object, port object) of each public callable of
+    ``mod`` that the port has."""
+    ref = importlib.import_module(mod)
+    port = importlib.import_module(_port_name(mod))
+    for name in _public_names(mod):
+        obj = getattr(ref, name, None)
+        if not callable(obj) or (mod, name) in EXCEPTIONS:
+            continue
+        yield name, obj, getattr(port, KERNEL_ENTRIES.get((mod, name), name))
 
 
 def _modules():
@@ -106,6 +169,29 @@ def test_port_module_has_the_reference_names(mod):
         if not hasattr(port, KERNEL_ENTRIES.get((mod, name), name)):
             missing.append(name)
     assert not missing, f"{_port_name(mod)} lacks {missing}"
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_port_takes_the_reference_parameters(mod):
+    bad = {}
+    for name, ref, port in _callables(mod):
+        if (mod, name) in SIGNATURE_EXCEPTIONS:
+            continue
+        problems = _signature_problems(ref, port)
+        if problems:
+            bad[name] = problems
+    assert not bad, f"{_port_name(mod)}: {bad}"
+
+
+def test_signature_exceptions_still_differ():
+    assert len(SIGNATURE_EXCEPTIONS) <= 2
+    for (mod, name), why in SIGNATURE_EXCEPTIONS.items():
+        assert why
+        found = {n: (r, p) for n, r, p in _callables(mod)}
+        assert name in found, (mod, name)
+        assert _signature_problems(*found[name]), (
+            f"{mod}.{name} now takes the reference's parameters: drop its "
+            f"signature exception")
 
 
 def test_exceptions_and_kernel_entries_are_current():
