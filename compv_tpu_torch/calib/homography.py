@@ -23,6 +23,7 @@ from compv_tpu_torch.core.types import at_x64_off
 from compv_tpu_torch.calib.ransac import _masked_sample_idx
 from compv_tpu_torch.math.stats import hartley_normalize
 from compv_tpu_torch.math.transform import apply_homography
+from compv_tpu_torch.profiling import span
 
 __all__ = ["HomographyConfig", "HomographyResult", "compute_homography_dlt",
            "find_homography", "symmetric_transfer_error"]
@@ -159,35 +160,37 @@ def find_homography(src: torch.Tensor, dst: torch.Tensor,
                     ) -> HomographyResult:
     """RANSAC homography over padded point sets (N, 2) + validity mask.
     Winner = most inliers, lower summed inlier error as tie-break."""
-    n = src.shape[0]
-    if mask is None:
-        mask = torch.ones((n,), dtype=torch.bool, device=src.device)
-    src = src.to(torch.float32)
-    dst = dst.to(torch.float32)
+    with span("homography"):
+        n = src.shape[0]
+        if mask is None:
+            mask = torch.ones((n,), dtype=torch.bool, device=src.device)
+        src = src.to(torch.float32)
+        dst = dst.to(torch.float32)
 
-    idx = _masked_sample_idx(config.seed, mask, config.num_hypotheses, 4)
-    s4, d4 = src[idx], dst[idx]                                    # (S, 4, 2)
-    hs = _h_from_quad(s4, d4)                                      # (S, 3, 3)
-    hyp_ok = (_quad_nondegenerate(s4) & _quad_nondegenerate(d4)
-              & mask[idx].all(dim=1)
-              & torch.isfinite(hs).all(dim=2).all(dim=1))
-    errs = symmetric_transfer_error(hs, src, dst)
-    errs = torch.where(torch.isfinite(errs), errs, torch.inf)       # (S, N)
-    inl = (errs < config.threshold) & mask[None, :] & hyp_ok[:, None]
-    counts = inl.sum(dim=1)
-    score = counts.to(torch.float32) - 1e-9 * torch.where(inl, errs, 0.0).sum(dim=1)
-    score = torch.where(hyp_ok, score, -torch.inf)
-    best = torch.argmax(score)
-    best_h = hs[best]
-    best_inl = inl[best]
+        idx = _masked_sample_idx(config.seed, mask, config.num_hypotheses, 4)
+        s4, d4 = src[idx], dst[idx]                                # (S, 4, 2)
+        hs = _h_from_quad(s4, d4)                                  # (S, 3, 3)
+        hyp_ok = (_quad_nondegenerate(s4) & _quad_nondegenerate(d4)
+                  & mask[idx].all(dim=1)
+                  & torch.isfinite(hs).all(dim=2).all(dim=1))
+        errs = symmetric_transfer_error(hs, src, dst)
+        errs = torch.where(torch.isfinite(errs), errs, torch.inf)   # (S, N)
+        inl = (errs < config.threshold) & mask[None, :] & hyp_ok[:, None]
+        counts = inl.sum(dim=1)
+        score = (counts.to(torch.float32)
+                 - 1e-9 * torch.where(inl, errs, 0.0).sum(dim=1))
+        score = torch.where(hyp_ok, score, -torch.inf)
+        best = torch.argmax(score)
+        best_h = hs[best]
+        best_inl = inl[best]
 
-    if config.refine:
-        h_ref = compute_homography_dlt(src, dst, best_inl)
-        inl_ref = (symmetric_transfer_error(h_ref, src, dst)
-                   < config.threshold) & mask
-        better = inl_ref.sum() >= best_inl.sum()
-        best_h = torch.where(better, h_ref, best_h)
-        best_inl = torch.where(better, inl_ref, best_inl)
+        if config.refine:
+            h_ref = compute_homography_dlt(src, dst, best_inl)
+            inl_ref = (symmetric_transfer_error(h_ref, src, dst)
+                       < config.threshold) & mask
+            better = inl_ref.sum() >= best_inl.sum()
+            best_h = torch.where(better, h_ref, best_h)
+            best_inl = torch.where(better, inl_ref, best_inl)
 
-    return HomographyResult(h=best_h, inliers=best_inl,
-                            num_inliers=best_inl.sum().to(torch.int32))
+        return HomographyResult(h=best_h, inliers=best_inl,
+                                num_inliers=best_inl.sum().to(torch.int32))

@@ -29,6 +29,7 @@ from compv_tpu_torch.ops.bitops import pack_bits_to_bytes
 from compv_tpu_torch.ops.conv import gaussian_blur
 from compv_tpu_torch.ops.kernels import fast_kernel
 from compv_tpu_torch.ops.topk import top_k, top_k_2d
+from compv_tpu_torch.profiling import span
 
 __all__ = ["OrbConfig", "brief_pattern", "patch_orientation", "brief_describe",
            "orb_detect_describe", "OrbResult"]
@@ -215,82 +216,95 @@ def orb_detect_describe(img: torch.Tensor, config: OrbConfig = OrbConfig()
     """Full ORB pipeline on a grayscale (H, W) u8 image. All output shapes
     follow from the image shape and the config, so nothing waits on the
     device."""
-    img = img.contiguous()
-    h, w = img.shape
-    dev = img.device
-    budgets = _level_budgets(config)
-    sizes = pyramid_sizes(h, w, config.levels, config.scale_factor)
-    sfs = scale_factors(config.levels, config.scale_factor)
+    with span("orb"):
+        img = img.contiguous()
+        h, w = img.shape
+        dev = img.device
+        budgets = _level_budgets(config)
+        sizes = pyramid_sizes(h, w, config.levels, config.scale_factor)
+        sfs = scale_factors(config.levels, config.scale_factor)
 
-    parts = []
-    for lv in range(config.levels):
-        lh, lw = sizes[lv]
-        if lh < PATCH_DIAMETER + 2 or lw < PATCH_DIAMETER + 2:
-            continue  # no keypoint can have a fully interior patch
-        k = min(budgets[lv], lh * lw)
-        level_img = img if lv == 0 else scale_image(img, lh, lw, "bilinear")
+        parts = []
+        for lv in range(config.levels):
+            lh, lw = sizes[lv]
+            if lh < PATCH_DIAMETER + 2 or lw < PATCH_DIAMETER + 2:
+                continue  # no keypoint can have a fully interior patch
+            k = min(budgets[lv], lh * lw)
+            if lv == 0:
+                level_img = img
+            else:
+                with span("orb.pyramid", level=lv):
+                    level_img = scale_image(img, lh, lw, "bilinear")
 
-        if config.nms:
-            s_raw, s = fast_kernel.fast_strengths_and_nms(
-                level_img, config.threshold, config.fast_n)
-        else:
-            s = fast_kernel.fast_strengths_nms(
-                level_img, config.threshold, config.fast_n, nms=False,
-                as_f32=True)
-            s_raw = s
-        # border erase at the patch radius (orb_dete.cxx:318-323)
-        s = torch.where(fast_kernel._interior(lh, lw, PATCH_RADIUS, dev), s, 0.0)
+            with span("orb.detect", level=lv):
+                if config.nms:
+                    s_raw, s = fast_kernel.fast_strengths_and_nms(
+                        level_img, config.threshold, config.fast_n)
+                else:
+                    s = fast_kernel.fast_strengths_nms(
+                        level_img, config.threshold, config.fast_n,
+                        nms=False, as_f32=True)
+                    s_raw = s
+                # border erase at the patch radius (orb_dete.cxx:318-323)
+                s = torch.where(
+                    fast_kernel._interior(lh, lw, PATCH_RADIUS, dev), s, 0.0)
 
-        vals, idx = top_k_2d(s, k)
-        valid = vals > 0
-        lx = (idx % lw).to(torch.float32)
-        ly = (idx // lw).to(torch.float32)
+                vals, idx = top_k_2d(s, k)
+                valid = vals > 0
+                lx = (idx % lw).to(torch.float32)
+                ly = (idx // lw).to(torch.float32)
 
-        orient = patch_orientation(level_img, lx, ly, valid)
-        blurred = gaussian_blur(level_img, config.blur_size, config.blur_sigma)
-        desc = brief_describe(blurred, lx, ly, orient, valid)
+            with span("orb.orient", level=lv):
+                orient = patch_orientation(level_img, lx, ly, valid)
+            with span("orb.describe", level=lv):
+                blurred = gaussian_blur(level_img, config.blur_size,
+                                        config.blur_sigma)
+                desc = brief_describe(blurred, lx, ly, orient, valid)
 
-        if config.subpixel:
-            rx, ry = _subpixel_offsets(s_raw, lx, ly)
-            lxo = lx + torch.where(valid, rx, 0.0)
-            lyo = ly + torch.where(valid, ry, 0.0)
-        else:
-            lxo, lyo = lx, ly
+            with span("orb.assemble", level=lv):
+                if config.subpixel:
+                    rx, ry = _subpixel_offsets(s_raw, lx, ly)
+                    lxo = lx + torch.where(valid, rx, 0.0)
+                    lyo = ly + torch.where(valid, ry, 0.0)
+                else:
+                    lxo, lyo = lx, ly
 
-        inv_sf = 1.0 / sfs[lv]
-        inv_sf32 = float(np.float32(inv_sf))  # the reference scales in f32
-        parts.append((
-            Keypoints(
-                x=torch.where(valid, lxo * inv_sf32, 0.0),
-                y=torch.where(valid, lyo * inv_sf32, 0.0),
-                strength=torch.where(valid, vals, 0.0),
-                orientation=orient,
-                level=torch.full((k,), lv, dtype=torch.int32, device=dev),
-                size=torch.full((k,), PATCH_DIAMETER * inv_sf,
-                                dtype=torch.float32, device=dev),
-                valid=valid,
-            ),
-            desc,
-        ))
+                inv_sf = 1.0 / sfs[lv]
+                inv_sf32 = float(np.float32(inv_sf))  # the reference: f32
+                parts.append((
+                    Keypoints(
+                        x=torch.where(valid, lxo * inv_sf32, 0.0),
+                        y=torch.where(valid, lyo * inv_sf32, 0.0),
+                        strength=torch.where(valid, vals, 0.0),
+                        orientation=orient,
+                        level=torch.full((k,), lv, dtype=torch.int32,
+                                         device=dev),
+                        size=torch.full((k,), PATCH_DIAMETER * inv_sf,
+                                        dtype=torch.float32, device=dev),
+                        valid=valid,
+                    ),
+                    desc,
+                ))
 
-    if not parts:
-        k = config.max_features
-        zf = torch.zeros((k,), dtype=torch.float32, device=dev)
-        return OrbResult(
-            keypoints=Keypoints(zf, zf, zf, zf,
-                                torch.zeros((k,), dtype=torch.int32, device=dev),
-                                zf, torch.zeros((k,), dtype=torch.bool,
-                                                device=dev)),
-            descriptors=torch.zeros((k, DESC_BITS), dtype=torch.uint8,
-                                    device=dev))
+        with span("orb.assemble"):
+            if not parts:
+                k = config.max_features
+                zf = torch.zeros((k,), dtype=torch.float32, device=dev)
+                zi = torch.zeros((k,), dtype=torch.int32, device=dev)
+                zb = torch.zeros((k,), dtype=torch.bool, device=dev)
+                return OrbResult(
+                    keypoints=Keypoints(zf, zf, zf, zf, zi, zf, zb),
+                    descriptors=torch.zeros((k, DESC_BITS),
+                                            dtype=torch.uint8, device=dev))
 
-    kp_all = Keypoints(*[torch.cat([getattr(p[0], fld) for p in parts])
-                         for fld in Keypoints._fields])
-    desc_all = torch.cat([p[1] for p in parts], dim=0)
+            kp_all = Keypoints(*[torch.cat([getattr(p[0], fld)
+                                            for p in parts])
+                                 for fld in Keypoints._fields])
+            desc_all = torch.cat([p[1] for p in parts], dim=0)
 
-    # global top max_features by strength
-    kcap = min(config.max_features, kp_all.capacity)
-    svals = torch.where(kp_all.valid, kp_all.strength, -torch.inf)
-    _, sel = top_k(svals, kcap)
-    return OrbResult(keypoints=kp_all._take(sel),
-                     descriptors=desc_all.index_select(0, sel))
+            # global top max_features by strength
+            kcap = min(config.max_features, kp_all.capacity)
+            svals = torch.where(kp_all.valid, kp_all.strength, -torch.inf)
+            _, sel = top_k(svals, kcap)
+            return OrbResult(keypoints=kp_all._take(sel),
+                             descriptors=desc_all.index_select(0, sel))

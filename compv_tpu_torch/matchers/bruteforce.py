@@ -16,6 +16,7 @@ import torch
 
 from compv_tpu_torch.core.types import Matches
 from compv_tpu_torch.ops.topk import top_k
+from compv_tpu_torch.profiling import span
 
 __all__ = ["MatcherConfig", "hamming_distance_matrix", "knn_match",
            "match_bruteforce", "ratio_test"]
@@ -49,18 +50,19 @@ def knn_match(query_bits: torch.Tensor, train_bits: torch.Tensor,
     if k > train_bits.shape[0]:
         raise ValueError(f"knn_match: k={k} exceeds the "
                          f"{train_bits.shape[0]} train descriptors")
-    d = hamming_distance_matrix(query_bits, train_bits)
-    big = 1 << 30
-    if train_valid is not None:
-        d = torch.where(train_valid[None, :], d, big)
-    vals, idx = top_k(-d, k)          # (Nq, k)
-    dist = (-vals).to(torch.float32)
-    valid = vals > -big
-    if query_valid is not None:
-        valid = valid & query_valid[:, None]
-    return Matches(train_idx=idx.T.to(torch.int32),
-                   distance=torch.where(valid, dist, torch.inf).T,
-                   valid=valid.T)
+    with span("match.knn"):
+        d = hamming_distance_matrix(query_bits, train_bits)
+        big = 1 << 30
+        if train_valid is not None:
+            d = torch.where(train_valid[None, :], d, big)
+        vals, idx = top_k(-d, k)          # (Nq, k)
+        dist = (-vals).to(torch.float32)
+        valid = vals > -big
+        if query_valid is not None:
+            valid = valid & query_valid[:, None]
+        return Matches(train_idx=idx.T.to(torch.int32),
+                       distance=torch.where(valid, dist, torch.inf).T,
+                       valid=valid.T)
 
 
 def match_bruteforce(query_bits: torch.Tensor, train_bits: torch.Tensor,
@@ -88,8 +90,9 @@ def ratio_test(matches: Matches, ratio: float = 0.67) -> torch.Tensor:
     0.67). Returns (Nq,) bool. Of a knn = 1 set the reference reads row 1
     as row 0 (JAX clamps an index past the end), so every query fails;
     the port reads it the same way."""
-    second = min(1, matches.distance.shape[0] - 1)
-    d1 = matches.distance[0]
-    d2 = matches.distance[second]
-    return (matches.valid[0] & matches.valid[second]
-            & (d1 < float(np.float32(ratio)) * d2))
+    with span("match.ratio"):
+        second = min(1, matches.distance.shape[0] - 1)
+        d1 = matches.distance[0]
+        d2 = matches.distance[second]
+        return (matches.valid[0] & matches.valid[second]
+                & (d1 < float(np.float32(ratio)) * d2))

@@ -7,8 +7,9 @@ HOG's determinism, the image ops, saturating arithmetic, SVM, PCA and
 KNN; slice 5: the Timer's wait, the trace file of one K1 launch,
 memory statistics, drawing from results on the card, frames uploaded from
 recycled staging buffers; slice 6: ``sharded_detect`` on two ranks of the
-card over gloo). Every test needs an NVIDIA GPU and nvcc, and skips
-without them.
+card over gloo; the program's spans on the device trace's clock, and
+``benchmark/spantrace.py`` laying a traced slice against them). Every
+test needs an NVIDIA GPU and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
 without them; from the repository root:
@@ -1205,3 +1206,128 @@ def test_sharded_detect_on_two_ranks_of_the_card(dev):
         assert device_type == "cuda"
         for a, b in zip(got, local):
             assert torch.equal(a, b.cpu())
+
+
+# ------------------------------------------------------- the program's spans
+
+def test_a_span_and_a_record_function_range_share_the_clock(dev, tmp_path):
+    """A span around a ``record_function`` range holds it, start and end
+    each within 50 µs, in a ``profiling.trace`` window on the card."""
+    import statistics
+
+    from compv_tpu_torch import profiling
+
+    x = torch.ones(1024, device=dev)
+    with profiling.trace(str(tmp_path)) as prof:
+        for i in range(32):
+            with profiling.span("probe", i=i):
+                with torch.autograd.profiler.record_function(f"probe{i}"):
+                    x.add_(1)
+    ranges = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("probe") and e.device_type()
+              == torch.autograd.DeviceType.CPU}
+    starts, ends = [], []
+    for r in prof.spans:
+        if r.attrs["i"] >= 8:   # the first ranges of a window warm up
+            rs, re_ = ranges[f"probe{r.attrs['i']}"]
+            starts.append(rs - r.start_ns)
+            ends.append(r.end_ns - re_)
+    print(f"span before range: start median {statistics.median(starts)} ns "
+          f"(max {max(starts)}), end median {statistics.median(ends)} ns "
+          f"(max {max(ends)})")
+    assert len(starts) == 24
+    assert all(-50_000 < d < 50_000 for d in starts + ends), (starts, ends)
+
+
+@pytest.fixture(scope="module")
+def traced_pairs(dev, tmp_path_factory):
+    """Three ``match_pair`` calls at 720x1282 in one traced window that
+    holds every K1 launch, with the synchronizing calls that sync debug
+    mode reports inside them."""
+    import time
+    import warnings
+
+    from compv_tpu_torch import profiling
+    from compv_tpu_torch.slam import frontend
+
+    a = torch.from_numpy(_scene(720, 1282)).to(dev)
+    b = torch.roll(a, (5, 9), (0, 1))
+    frontend.match_pair(a, b)                       # built and warm
+    for _ in range(3):      # a window can lose kernel records
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with profiling.trace(
+                        str(tmp_path_factory.mktemp("tr"))) as prof:
+                    t0 = time.perf_counter()
+                    n0 = len(caught)
+                    for _ in range(3):
+                        frontend.match_pair(a, b)
+                    n1 = len(caught)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not prof.shortfall:
+            break
+    else:
+        pytest.skip(f"each of 3 windows lost K1 records: {prof.shortfall}")
+    warned = sum("synchronizing" in str(w.message) for w in caught[n0:n1])
+    return prof, wall, warned
+
+
+def test_by_span_puts_every_k1_kernel_in_orb_detect(traced_pairs):
+    from benchmark import spantrace
+
+    prof, wall, _ = traced_pairs
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    k1_only = [e for e in events if e.device_type() != cuda
+               or "fast_kernel" in e.name()]
+    got = spantrace.reduce_by_span({"events": k1_only, "wall_s": wall},
+                                   prof.spans, 3)
+    assert got["total"]["kernels"] == 48                # 16 a call
+    assert got["rows"]["orb.detect"]["kernels"] == 48, got["rows"]
+    got = spantrace.reduce_by_span({"events": events, "wall_s": wall},
+                                   prof.spans, 3)
+    kernels = sum(1 for e in events if e.device_type() == cuda
+                  and not e.name().startswith(("Memcpy", "Memset")))
+    assert got["total"]["kernels"] == kernels
+    assert sum(r["kernels"] for r in got["rows"].values()) == kernels
+    assert "launch not found" not in got["rows"]
+    print(spantrace.table(got))
+
+
+def test_by_span_syncs_are_the_ones_sync_debug_mode_reports(traced_pairs):
+    """The trace's synchronizing calls inside ``match_pair`` are those sync
+    debug mode reports, and one a call more: cuSOLVER's ``syevd`` waits
+    for the device inside ``torch.linalg.eigh`` itself, where no check of
+    PyTorch's sees it (its own info check is seen)."""
+    from benchmark import spantrace
+
+    prof, wall, warned = traced_pairs
+    events = prof.profiler.kineto_results.events()
+    got = spantrace.reduce_by_span({"events": events, "wall_s": wall},
+                                   prof.spans, 3)
+    syncs = got["requests"]["frontend.match_pair"]["syncs"]
+    cuda = torch.autograd.DeviceType.CUDA
+    host = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in events if e.device_type() != cuda)
+    ops = [h for h in host if h[2].startswith("aten::")]
+    roots = [r for r in prof.spans if r.name == "frontend.match_pair"]
+    inside_eigh = 0
+    for t, _, name in host:
+        if not spantrace.is_sync(name) or not any(
+                r.start_ns <= t <= r.end_ns for r in roots):
+            continue
+        around = [o for o in ops if o[0] <= t <= o[1]]
+        innermost = (max(around, key=lambda o: (o[0], -o[1]))[2]
+                     if around else None)
+        inside_eigh += innermost == "aten::_linalg_eigh"
+    print(f"syncs inside match_pair: {syncs} by the trace, {warned} by "
+          f"sync debug mode, {inside_eigh} inside cuSOLVER's eigh, over 3 "
+          f"calls")
+    assert inside_eigh == 3
+    assert syncs == warned + inside_eigh

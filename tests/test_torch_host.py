@@ -315,13 +315,28 @@ def test_synchronize_walks_the_tree():
 
 
 def test_trace_on_cpu_writes_a_chrome_trace(tmp_path):
+    """The window's program spans are in the file too, on a row of their
+    own, on the trace's clock: they hold the ops run inside them."""
+    assert not profiling.spans.on
     with profiling.trace(str(tmp_path), device="cpu") as prof:
-        torch.ones(64).add_(1)
+        with profiling.span("outer"):
+            with profiling.span("inner", level=3):
+                torch.ones(64).add_(1)
+    assert not profiling.spans.on and profiling.spans.take() == []
     path = prof.trace_path
     assert os.path.dirname(path) == str(tmp_path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::add_" in str(e.get("name")) for e in events)
+    assert [r.name for r in prof.spans] == ["inner", "outer"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "compv_span"}
+    assert set(spans) == {"inner", "outer"}
+    assert spans["inner"]["args"]["level"] == 3
+    assert spans["inner"]["tid"] == spans["outer"]["tid"]
+    (add,) = [e for e in events if e.get("name") == "aten::add_"]
+    for e in spans.values():
+        assert e["ts"] <= add["ts"] + 1000                 # µs; 1 ms of slack
+        assert add["ts"] + add["dur"] <= e["ts"] + e["dur"] + 1000
 
 
 def test_window_shortfall_names_the_missing_kernels():
