@@ -29,15 +29,17 @@ a fresh process and after a load of other work):
     python3 chip_smoke.py --distributed
     python3 chip_smoke.py --trace-probe
 
-With --examples it only runs phase 22, with --bench only phase 23 and
-with --sweep only phase 24 (each after phase 1's build):
+With --examples it only runs phase 22, with --bench only phase 23, with
+--sweep only phase 24 and with --orient only phase 25 (each after phase
+1's build):
 
     python3 chip_smoke.py --examples
     python3 chip_smoke.py --bench
     python3 chip_smoke.py --sweep
+    python3 chip_smoke.py --orient
 
 Phases, each printing its lines before the last:
-  1. device and build: the card's name and power limit, the five kernel
+  1. device and build: the card's name and power limit, the six kernel
      sources built in parallel (one nvcc each), their ptxas lines;
   2. kernel vs twin: the FAST kernel K1 against its plain PyTorch twin, by
      exact equality, on the 720p scene and its pyramid, uniform noise,
@@ -49,8 +51,8 @@ Phases, each printing its lines before the last:
      md5, Otsu, CCL-features and MSER values, computed by the port on the GPU;
   4. the ORB slice: slam.frontend.match_pair on a 720x1282 scene paired
      with its roll by (4, 7), at the full ORB/RANSAC configuration, with the
-     kernel's launch count, geometric and determinism checks, and the same
-     pair through the kernel's twins; the card's ORB of both images against
+     launch counts of K1 and of the orientation kernel K6, geometric and
+     determinism checks, and the same pair through both kernels' twins; the card's ORB of both images against
      the port's on the CPU (keypoints' x, y, level, strength and valid
      equal, orientations within ORIENTATION_TOL_DEG, the descriptor bits
      that differ counted and each traced to the angle, the card's cos / sin
@@ -239,8 +241,9 @@ Phases, each printing its lines before the last:
      scripts/examples_reference.py) by the CPU tests' bars and its wall
      seconds printed with the card's name and power limit; each
      single-process program run again in this process with the hand
-     kernels' counts read around its main() (K1 once a pyramid level of
-     each ORB in object_recognition, planar_tracking and live_demo; K4 once
+     kernels' counts read around its main() (K1 and K6 once a pyramid
+     level of each ORB in object_recognition, planar_tracking and
+     live_demo; K4 once
      in edge_lines and once a view in camera_calibration; every other count
      0) and its full-precision results held to EXAMPLES_REF; and once on
      the CPU, whose written images the card run's are compared with (equal
@@ -253,7 +256,8 @@ Phases, each printing its lines before the last:
      the card, no error line and rc 0; each row's checksum from one call on
      the card equal to the CPU's (accumulators within BENCH_ACC_REL) and
      the hand kernels that call launched as BENCH_LAUNCHES (K1 once in the
-     FAST row and 16 times in frontend_pair_720p, K2a in ccl_label_text, K3
+     FAST row, K1 and the orientation kernel K6 16 times each in
+     frontend_pair_720p, K2a in ccl_label_text, K3
      in ccl_boxes_text, K2b 49 times in mser_text, K4 in hough_sht, none
      elsewhere); then each row's call in this process, timed by CUDA
      events and under torch.profiler (device busy, launches, idle share),
@@ -268,7 +272,14 @@ Phases, each printing its lines before the last:
      the case's rule: the same exception class where one raises, else the
      same structure, dtypes and shapes, integers bit-equal and floats
      within the case's tolerance; each of the table's CARD_FAULTS must
-     still differ. Counts by module and by dtype.
+     still differ. Counts by module and by dtype;
+ 25. (run after phase 5) ORB's orientation kernel K6, which replaces no
+     TPU kernel: at the 720p scene's 8 pyramid levels with the keypoints,
+     budgets and valid flags of ORB's level loop, each call equal to its
+     twin on the card for the u8 level and an f32 image with fractions,
+     one counted launch and one kernel node a call; per level its device
+     and event time, the twin's time and its bound (the disc pixels read
+     once at 3.35 TB/s, or the moments' f32 operations).
 
 Each phase prints its wall seconds on a line of its own ({"phase_s":
 ...}), and the line before the card's gives them all with the total.
@@ -343,6 +354,7 @@ TIMING_REPS = {             # cuda_ms repeats a reading, by phase and call
     "track": 1,             # 2: phase 16, track_planar_sequence
     "posegraph": 1,         # 2: phase 16, optimize_pose_graph
     "bench_here": 3,        # 5: phase 23, each row's call here
+    "orient": 5,            # phase 25, the orientation kernel / twin
 }
 
 
@@ -576,20 +588,21 @@ def phase1_device_and_build():
     from compv_tpu_torch.device import require_cuda
     from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
                                              compact_kernel, fast_kernel,
-                                             hough_kernel, label_stats)
+                                             hough_kernel, label_stats,
+                                             orient_kernel)
 
     dev = require_cuda()
     card = card_line()
     emit(card)
     names = ("fast_kernel", "ccl_kernel", "compact_kernel", "hough_kernel",
-             "label_stats")
+             "label_stats", "orient_kernel")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         native = pool.submit(native_rt.native_available)   # g++, slice 5
         paths = dict(zip(names, pool.map(_build.build, names)))
         check(native.result(), "g++ did not build the native runtime")
     for module in (fast_kernel, ccl_kernel, compact_kernel, hough_kernel,
-                   label_stats):
+                   label_stats, orient_kernel):
         module._kernel_lib()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text()
@@ -777,11 +790,14 @@ def phase3_goldens(dev) -> None:
 
 
 @contextlib.contextmanager
-def fast_twins():
-    """Route the ORB level loop through K1's plain twins (this phase only)."""
+def orb_twins():
+    """Route the ORB level loop through the plain twins of K1 and of the
+    orientation kernel (this phase only)."""
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
     saved = fk.fast_strengths_and_nms, fk.fast_strengths_nms
+    saved_orient = ok.patch_orientation
 
     def both(img, threshold=20, n=9):
         s = fk._strengths_ref(img, threshold, n)
@@ -793,10 +809,12 @@ def fast_twins():
         return s if as_f32 else s.to(torch.uint8)
 
     fk.fast_strengths_and_nms, fk.fast_strengths_nms = both, one
+    ok.patch_orientation = ok._orientation_ref
     try:
         yield
     finally:
         fk.fast_strengths_and_nms, fk.fast_strengths_nms = saved
+        ok.patch_orientation = saved_orient
 
 
 def phase4_slice(dev, scene: np.ndarray):
@@ -805,6 +823,7 @@ def phase4_slice(dev, scene: np.ndarray):
     from compv_tpu_torch.calib.homography import HomographyConfig
     from compv_tpu_torch.image.pyramid import pyramid_sizes
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
     from compv_tpu_torch.slam.frontend import FrontendConfig, match_pair
 
     cfg = FrontendConfig(orb=OrbConfig(max_features=2000, levels=8),
@@ -815,12 +834,15 @@ def phase4_slice(dev, scene: np.ndarray):
                       if lh >= PATCH_DIAMETER + 2 and lw >= PATCH_DIAMETER + 2)
 
     torch.cuda.synchronize()
-    fk.launches = 0
+    fk.launches = ok.launches = 0
     res = match_pair(img1, img2, cfg)
     torch.cuda.synchronize()
     launches = fk.launches
     check(launches == 2 * levels_used,
           f"K1 launches {launches} != 2 images x {levels_used} levels")
+    check(ok.launches == 2 * levels_used,
+          f"orientation kernel launches {ok.launches} != 2 images x "
+          f"{levels_used} levels")
 
     num_matches = int(res.num_matches)
     num_inliers = int(res.num_inliers)
@@ -841,7 +863,7 @@ def phase4_slice(dev, scene: np.ndarray):
         check(torch.equal(getattr(res, name), getattr(again, name)),
               f"second run differs in {name}")
 
-    with fast_twins():
+    with orb_twins():
         twin = [orb_detect_describe(im, cfg.orb) for im in (img1, img2)]
     for im, ref in zip((img1, img2), twin):
         got = orb_detect_describe(im, cfg.orb)
@@ -1071,6 +1093,120 @@ def phase5_times(dev, card: str, cfg, img1, img2):
           "timing": "median of 20 CUDA-event timings after warm-up; device "
                     "times by the profiler"})
     return (kernel_ms, twin_ms, dev_ms), bound0
+
+
+# ---------------------------------------------------------------------------
+# ORB's orientation kernel (K6): it replaces no TPU kernel; eager PyTorch
+# made the twin's dense moment maps ~380 launches an image and level
+
+
+def orient_calls(img: torch.Tensor, cfg) -> list:
+    """(level image, x, y, valid) of each orientation call that one
+    orb_detect_describe of ``img`` makes, as its level loop makes them."""
+    from compv_tpu_torch.features.orb import orb_detect_describe
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
+
+    calls, real = [], ok.patch_orientation
+
+    def spy(im, x, y, valid):
+        calls.append((im, x, y, valid))
+        return real(im, x, y, valid)
+    ok.patch_orientation = spy
+    try:
+        orb_detect_describe(img, cfg)
+    finally:
+        ok.patch_orientation = real
+    return calls
+
+
+def orient_bound(img: torch.Tensor, x, y, valid) -> dict:
+    """K6's bound on one call. Bytes: the image pixels that the valid
+    keypoints' discs cover, each read once; x, y and valid read, the angles
+    written. Operations: per valid keypoint and moment a subtraction, a
+    multiplication and an addition for each of the disc's 339 steps and
+    30 additions to fold its rows (atan2 not counted)."""
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
+
+    h, w = img.shape
+    r = ok.RADIUS
+    offs = [(dy, dx) for dy in range(-r, r + 1)
+            for dx in range(-ok.HALF_WIDTHS[abs(dy)],
+                            ok.HALF_WIDTHS[abs(dy)] + 1)]
+    off = torch.tensor(offs, device=img.device)
+    xi = x.round().to(torch.int64).clamp(r, w - 1 - r)[valid]
+    yi = y.round().to(torch.int64).clamp(r, h - 1 - r)[valid]
+    py = yi[:, None] + off[None, :, 0]
+    px = xi[:, None] + off[None, :, 1]
+    inside = (py >= 0) & (py < h) & (px >= 0) & (px < w)
+    pixels = int(torch.unique((py * w + px)[inside]).numel())
+    steps = sum(ok.HALF_WIDTHS[abs(d)] for d in range(-r, r + 1))
+    kv = int(valid.sum())
+    out = bound(pixels * img.element_size() + 13 * x.numel(),
+                kv * 2 * (3 * steps + 2 * r), FP32_OPS_PER_S)
+    out["disc_pixels"] = pixels
+    return out
+
+
+def phase25_orient_kernel(dev, card: str, scene: np.ndarray) -> dict:
+    """K6 at the cam720p cell's shapes: the 8 level images of the 720x1282
+    scene with the keypoints, budgets and valid flags that ORB's level loop
+    gives them. Each call against its twin on the card, exact, as u8 and
+    as an f32 image with fractions (where the order of the sums shows),
+    one launch counted and one device operation (a captured graph's nodes)
+    a call; then, per level, device time (profiler), event time (CUDA
+    events, 50 calls back to back), the twin's time and the bound."""
+    from compv_tpu_torch.features.orb import OrbConfig
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
+
+    img1 = torch.from_numpy(scene).to(dev)
+    calls = orient_calls(img1, OrbConfig())
+    check(len(calls) == 8, f"{len(calls)} orientation calls, not 8")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    reps = TIMING_REPS["orient"]
+    levels = []
+    for lv, (im, x, y, valid) in enumerate(calls):
+        frac = im.to(torch.float32) * 1.37 + torch.rand(
+            im.shape, generator=gen, device=dev)
+        for img in (im, frac):
+            before = ok.launches
+            got = ok.patch_orientation(img, x, y, valid)
+            check(ok.launches == before + 1, "K6 did not count its launch")
+            want = ok._orientation_ref(img, x, y, valid)
+            check(torch.equal(got, want),
+                  f"level {lv} {img.dtype}: K6 != twin in "
+                  f"{int((got != want).sum())} of {got.numel()} angles")
+
+        def call(im=im, x=x, y=y, valid=valid):
+            return ok.patch_orientation(im, x, y, valid)
+
+        nodes = captured_nodes(call)
+        check(nodes == [0], f"level {lv}: a call issued {nodes}, not one "
+                            "kernel")
+        bnd = orient_bound(im, x, y, valid)
+        dev_us = device_ms(call, calls=20) * 1e3
+        levels.append({
+            "shape": list(im.shape), "keypoints": x.numel(),
+            "valid": int(valid.sum()), "disc_pixels": bnd["disc_pixels"],
+            "device_us": dev_us,
+            "event_us": cuda_ms(call, reps=reps, inner=50) * 1e3,
+            "twin_us": cuda_ms(lambda im=im, x=x, y=y, valid=valid:
+                               ok._orientation_ref(im, x, y, valid),
+                               reps=reps, inner=5) * 1e3,
+            "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"],
+            "f32_image": "equal to the twin"})
+    check(all(lv["bound_us"] <= lv["device_us"] for lv in levels),
+          f"a K6 bound above its device time: {levels}")
+    out = {"phase": 25, "card": card, "levels": levels,
+           "launches_per_match_pair": 2 * len(levels),
+           **{f"{key}_per_match_pair": 2 * sum(lv[key] for lv in levels)
+              for key in ("device_us", "event_us", "twin_us", "bound_us")},
+           "bars": "kernel == twin on the card (torch.equal) for u8 and f32 "
+                   "images; one counted launch and one kernel node a call",
+           "timing": f"median of {reps} CUDA-event timings (50 kernel calls "
+                     "or 5 twin calls back to back) after warm-up; device "
+                     "times by the profiler"}
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3368,12 +3504,14 @@ def launch_counts() -> dict:
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
     return {"K1": fk.launches, "K2a": ck.ccl_label.launches,
             "K2b": ck.ccl_label_seeded.launches,
             "K3": cpk.compact_rows.launches,
             "K4": hk.sht_accumulate.launches,
-            "K5": ls.strip_label_counts.launches}
+            "K5": ls.strip_label_counts.launches,
+            "K6": ok.launches}
 
 
 def reset_launch_counts() -> None:
@@ -3382,8 +3520,9 @@ def reset_launch_counts() -> None:
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
+    from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
-    fk.launches = 0
+    fk.launches = ok.launches = 0
     for fn in (ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows,
                hk.sht_accumulate, ls.strip_label_counts):
         fn.launches = 0
@@ -4555,27 +4694,31 @@ def hold_precise(name: str, result: dict) -> dict:
 
 
 def expected_launches(name: str, result: dict) -> dict:
-    """The hand kernels' launches one run of a program makes: K1 once for
-    each pyramid level ORB runs on (orb_levels_used) of each image it
-    describes, K4 once a hough_sht (edge_lines) and once a view
-    (find_chessboard_corners)."""
+    """The hand kernels' launches one run of a program makes: K1 and the
+    orientation kernel (K6) once each for each pyramid level ORB runs on
+    (orb_levels_used) of each image it describes, K4 once a hough_sht
+    (edge_lines) and once a view (find_chessboard_corners)."""
     from compv_tpu_torch.features.orb import OrbConfig
 
-    zero = {k: 0 for k in KERNELS}
+    zero = {k: 0 for k in launch_counts()}
+
+    def orb(n):
+        return {**zero, "K1": n, "K6": n}
+
     if name == "edge_lines":
         return {**zero, "K4": 1}
     if name == "camera_calibration":
         return {**zero, "K4": 5}
     if name == "planar_tracking":
-        return {**zero, "K1": 6 * orb_levels_used(
-            200, 280, OrbConfig(max_features=1000, levels=4))}
+        return orb(6 * orb_levels_used(
+            200, 280, OrbConfig(max_features=1000, levels=4)))
     if name == "object_recognition":
         # 11 match_pair (2 images each) and the two ORB calls of the drawing
-        return {**zero, "K1": (2 * 11 + 2) * orb_levels_used(
-            240, 320, OrbConfig(max_features=512, levels=3))}
+        return orb((2 * 11 + 2) * orb_levels_used(
+            240, 320, OrbConfig(max_features=512, levels=3)))
     if name == "live_demo":
-        return {**zero, "K1": result["frames_drawn"] * orb_levels_used(
-            480, 640, OrbConfig(max_features=256, levels=3))}
+        return orb(result["frames_drawn"] * orb_levels_used(
+            480, 640, OrbConfig(max_features=256, levels=3)))
     raise ValueError(name)
 
 
@@ -4731,7 +4874,7 @@ def live_frame_gap(result: dict) -> int:
 # levels of the text scene's ladder (phase 7's count).
 BENCH_LAUNCHES = {
     "fast9_nms_detect_fps_1282x720": {"K1": 1},
-    "frontend_pair_720p": {"K1": 16},
+    "frontend_pair_720p": {"K1": 16, "K6": 16},
     "ccl_label_text": {"K2a": 1},
     "ccl_boxes_text": {"K3": 1},
     "mser_text": {"K2b": 49},
@@ -5103,6 +5246,12 @@ def main() -> int:
         sys.path.insert(0, ROOT)
         phase23_bench(*phase1_device_and_build())
         return 0
+    if "--orient" in sys.argv[1:]:
+        # phase 25 alone
+        sys.path.insert(0, ROOT)
+        dev, card = phase1_device_and_build()
+        timed(25, phase25_orient_kernel, dev, card, scenes()[0])
+        return 0
     if "--sweep" in sys.argv[1:]:
         # phase 24 alone
         sys.path.insert(0, ROOT)
@@ -5125,6 +5274,7 @@ def main() -> int:
     timed(3, phase3_goldens, dev)
     cfg, img1, img2, k1_launches = timed(4, phase4_slice, dev, scene)
     k1_times, k1_bound = timed(5, phase5_times, dev, card, cfg, img1, img2)
+    timed(25, phase25_orient_kernel, dev, card, scene)
     pairs, labels = timed(6, phase6_ccl_kernels_vs_twins, dev, text)
     text_bin, img, labels, launches = timed(7, phase7_text_slice, dev, text,
                                             len(pairs))

@@ -3,11 +3,11 @@
 
 Per level of an 8-level bilinear pyramid (sf 0.83): FAST-9 strengths and
 3x3 NMS (the Hopper kernel K1 on CUDA), border erase at the patch radius,
-top-k within the level's budget, intensity-centroid orientation from dense
-moment maps, Gaussian blur (5 taps, sigma 2), rotated BRIEF-256 sampled
-nearest-neighbour from the blurred level; then the global top
-``max_features`` by strength. Coordinates are refined by a quadratic vertex
-fit on the pre-NMS response and scaled back to level 0.
+top-k within the level's budget, intensity-centroid orientation (the
+Hopper kernel orb_orient on CUDA), Gaussian blur (5 taps, sigma 2),
+rotated BRIEF-256 sampled nearest-neighbour from the blurred level; then
+the global top ``max_features`` by strength. Coordinates are refined by a
+quadratic vertex fit on the pre-NMS response and scaled back to level 0.
 
 BRIEF is the reference's gather form (``orb.py:209-220``, the branch its
 CPU tests run); its one-hot MXU form is a TPU device and is not ported.
@@ -19,7 +19,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from compv_tpu_torch.core.types import Keypoints
 from compv_tpu_torch.image.pyramid import (pyramid_sizes, scale_factors,
@@ -27,7 +26,8 @@ from compv_tpu_torch.image.pyramid import (pyramid_sizes, scale_factors,
 from compv_tpu_torch.image.scale import scale as scale_image
 from compv_tpu_torch.ops.bitops import pack_bits_to_bytes
 from compv_tpu_torch.ops.conv import gaussian_blur
-from compv_tpu_torch.ops.kernels import fast_kernel
+from compv_tpu_torch.ops.kernels import fast_kernel, orient_kernel
+from compv_tpu_torch.ops.kernels.orient_kernel import _m10_map  # noqa: F401
 from compv_tpu_torch.ops.topk import top_k, top_k_2d
 from compv_tpu_torch.profiling import span
 
@@ -38,8 +38,7 @@ PATCH_DIAMETER = 31   # COMPV_FEATURE_DETE_ORB_PATCH_DIAMETER (orb_dete.cxx:41)
 PATCH_RADIUS = PATCH_DIAMETER // 2
 DESC_BITS = 256       # COMPV_FEATURE_DETE_ORB_PATCH_BITS (orb_dete.cxx:42)
 
-# f32 constants of jnp.rad2deg / jnp.deg2rad
-_RAD2DEG = float(np.float32(180 / np.pi))
+# f32 constant of jnp.deg2rad
 _DEG2RAD = float(np.float32(np.pi / 180))
 
 
@@ -94,56 +93,13 @@ def _pattern_on(device: torch.device) -> torch.Tensor:
     return pat
 
 
-def _m10_map(img: torch.Tensor) -> torch.Tensor:
-    """Dense map of the disc first moment m10(y, x) = sum over the
-    radius-15 disc of dx * I(y+dy, x+dx), by static shifts only.
-
-    Row moments build incrementally over the half-width e,
-    M_e = M_{e-1} + e * (I(., x+e) - I(., x-e)); the disc is 31 row-shifted
-    copies picking M_{e(|dy|)}, e(dy) = floor(sqrt(r^2 - dy^2)). All values
-    are integers below 2^24, so the f32 sums are exact in any order."""
-    f = img.to(torch.float32)
-    h, w = f.shape
-    r = PATCH_RADIUS
-
-    def shx(a, d):
-        if d > 0:
-            return F.pad(a, (0, d))[:, d:]
-        return F.pad(a, (-d, 0))[:, :w]
-
-    def shy(a, d):
-        if d == 0:
-            return a
-        if d > 0:
-            return F.pad(a, (0, 0, 0, d))[d:, :]
-        return F.pad(a, (0, 0, -d, 0))[:h, :]
-
-    es = [int(np.floor(np.sqrt(r * r - dy * dy))) for dy in range(r + 1)]
-    m_by_e = {0: torch.zeros_like(f)}
-    m = torch.zeros_like(f)
-    for e in range(1, r + 1):
-        m = m + float(e) * (shx(f, e) - shx(f, -e))
-        m_by_e[e] = m
-    out = m_by_e[es[0]]
-    for dy in range(1, r + 1):
-        me = m_by_e[es[dy]]
-        out = out + shy(me, dy) + shy(me, -dy)
-    return out
-
-
 def patch_orientation(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
     """IC-moment orientation in degrees [0,360) for keypoints at integer-
     rounded (x, y): atan2(m01, m10) over the radius-15 disc
-    (orb_dete.cxx:336-344), gathered from dense moment maps."""
-    h, w = img.shape
-    m10_map = _m10_map(img)
-    m01_map = _m10_map(img.T).T
-    xi = x.round().to(torch.int64).clamp(PATCH_RADIUS, w - 1 - PATCH_RADIUS)
-    yi = y.round().to(torch.int64).clamp(PATCH_RADIUS, h - 1 - PATCH_RADIUS)
-    deg = torch.atan2(m01_map[yi, xi], m10_map[yi, xi]) * _RAD2DEG
-    deg = torch.where(deg < 0, deg + 360.0, deg)
-    return torch.where(valid, deg, 0.0)
+    (orb_dete.cxx:336-344). On the card one launch of the orientation
+    kernel; on the CPU its twin, which gathers from dense moment maps."""
+    return orient_kernel.patch_orientation(img, x, y, valid)
 
 
 def brief_describe(blurred: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

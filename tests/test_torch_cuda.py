@@ -8,7 +8,8 @@ KNN; slice 5: the Timer's wait, the trace file of one K1 launch,
 memory statistics, drawing from results on the card, frames uploaded from
 recycled staging buffers; slice 6: ``sharded_detect`` on two ranks of the
 card over gloo; the program's spans on the device trace's clock, and
-``benchmark/spantrace.py`` laying a traced slice against them). Every
+``benchmark/spantrace.py`` laying a traced slice against them) and ORB's
+orientation kernel, which replaces no TPU kernel, against its twin. Every
 test needs an NVIDIA GPU and nvcc, and skips without them.
 
 This file imports neither JAX nor ``compv_tpu``, so it runs on a machine
@@ -158,6 +159,110 @@ def test_orb_cuda_matches_cpu(dev):
     d = (a.keypoints.orientation - b.keypoints.orientation.cpu()).abs()
     assert float(torch.minimum(d, 360 - d).max()) <= 1e-3
     assert float((a.descriptors != b.descriptors.cpu()).float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# ORB's orientation kernel against its twin
+
+from compv_tpu_torch.features.orb import _level_budgets  # noqa: E402
+from compv_tpu_torch.image.pyramid import pyramid_sizes  # noqa: E402
+from compv_tpu_torch.ops.kernels import orient_kernel  # noqa: E402
+
+# the cam720p cell's 8 level sizes and ORB's budgets for them
+ORB_LEVELS = list(zip(pyramid_sizes(720, 1282, 8, 0.83),
+                      _level_budgets(OrbConfig())))
+
+
+def _orient_inputs(dev, h, w, k, dtype, seed=0):
+    """A level image (u8 scene, or the scene times 1.37 plus fractions as
+    f32), keypoints inside, at and beyond the clamp edges and at .5, and a
+    valid mask with about a fifth unset."""
+    rs = np.random.default_rng(seed)
+    img = _scene(h, w, seed) if h and w else np.zeros((h, w), np.uint8)
+    if dtype == torch.float32:
+        img = (img * np.float32(1.37)
+               + rs.random((h, w), dtype=np.float32)).astype(np.float32)
+    edges_x = [-20, 0, 14.5, 15.5, 16.5, w - 16.5, w - 15.5, w + 20]
+    edges_y = [h + 20, 15.5, 14.5, 0, h - 15.5, -20, 16.5, h - 16.5]
+    n = max(k - len(edges_x), 0)
+    x = np.concatenate([rs.uniform(0, max(w - 1, 0), n), edges_x])[:k]
+    y = np.concatenate([rs.uniform(0, max(h - 1, 0), n), edges_y])[:k]
+    valid = rs.random(k) < 0.8
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(dev)
+    return (torch.from_numpy(np.ascontiguousarray(img)).to(dev),
+            t(x, np.float32), t(y, np.float32), t(valid, bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("level", range(8))
+def test_orient_kernel_equals_twin(dev, level, dtype):
+    (h, w), k = ORB_LEVELS[level]
+    img, x, y, valid = _orient_inputs(dev, h, w, k, dtype, seed=level)
+    assert img.dtype == dtype
+    got = orient_kernel.patch_orientation(img, x, y, valid)
+    want = orient_kernel._orientation_ref(img, x, y, valid)
+    assert got.dtype == torch.float32 and torch.equal(got, want), \
+        int((got != want).sum())
+
+
+@pytest.mark.parametrize("case", ["K=0", "all invalid", "int16 image",
+                                  (8, 40), (12, 12), (16, 30), (30, 8),
+                                  (20, 25), (31, 31), (33, 33)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_orient_kernel_edge_cases(dev, case, dtype):
+    shape = case if isinstance(case, tuple) else (96, 128)
+    k = 0 if case == "K=0" else 20
+    img, x, y, valid = _orient_inputs(dev, *shape, k, dtype, seed=3)
+    if case == "all invalid":
+        valid = torch.zeros_like(valid)
+    if case == "int16 image":
+        img = (img.to(torch.int16) - 100) * 3
+    before = orient_kernel.launches
+    got = orient_kernel.patch_orientation(img, x, y, valid)
+    assert orient_kernel.launches == before + (k > 0)
+    assert torch.equal(got, orient_kernel._orientation_ref(img, x, y, valid))
+    if case == "all invalid":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("shape", [(7, 40), (40, 5), (0, 10), (10, 0)])
+def test_orient_kernel_raises_where_the_twin_raises(dev, shape):
+    img = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    x = y = torch.full((3,), 2.0, device=dev)
+    valid = torch.ones(3, dtype=torch.bool, device=dev)
+    before = orient_kernel.launches
+    with pytest.raises(IndexError):
+        orient_kernel.patch_orientation(img, x, y, valid)
+    with pytest.raises(IndexError):
+        orient_kernel._orientation_ref(img.cpu(), x.cpu(), y.cpu(),
+                                       valid.cpu())
+    assert orient_kernel.launches == before
+
+
+def test_orient_kernel_rejects_what_it_does_not_take(dev):
+    img, x, y, valid = _orient_inputs(dev, 64, 80, 12, torch.uint8)
+    bad = {"dtype": (img, x.double(), y, valid),
+           "valid dtype": (img, x, y, valid.to(torch.uint8)),
+           "rank": (img, x[:, None], y, valid),
+           "image rank": (img[None], x, y, valid),
+           "device": (img, x.cpu(), y, valid),
+           "not contiguous": (img.t(), x, y, valid),
+           "x not contiguous": (img, torch.cat([x, x])[::2], y, valid)}
+    before = orient_kernel.launches
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            orient_kernel.patch_orientation(*args)
+    assert orient_kernel.launches == before
+
+
+def test_orient_kernel_counts_its_launches(dev):
+    img, x, y, valid = _orient_inputs(dev, 64, 80, 12, torch.uint8)
+    before = orient_kernel.launches
+    for i in range(1, 4):
+        orient_kernel.patch_orientation(img, x, y, valid)
+        assert orient_kernel.launches == before + i
 
 
 # ---------------------------------------------------------------------------
@@ -1298,6 +1403,26 @@ def test_by_span_puts_every_k1_kernel_in_orb_detect(traced_pairs):
     assert sum(r["kernels"] for r in got["rows"].values()) == kernels
     assert "launch not found" not in got["rows"]
     print(spantrace.table(got))
+
+
+def test_by_span_puts_every_orient_kernel_in_orb_orient(traced_pairs):
+    """``orb.orient`` holds the orientation kernel's 16 launches a call
+    (two images, 8 levels) and nothing else: no other kernel, no sync."""
+    from benchmark import spantrace
+
+    prof, wall, _ = traced_pairs
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    orient_only = [e for e in events if e.device_type() != cuda
+                   or "orb_orient" in e.name()]
+    got = spantrace.reduce_by_span({"events": orient_only, "wall_s": wall},
+                                   prof.spans, 3)
+    assert got["total"]["kernels"] == 48
+    assert got["rows"]["orb.orient"]["kernels"] == 48, got["rows"]
+    got = spantrace.reduce_by_span({"events": events, "wall_s": wall},
+                                   prof.spans, 3)
+    row = got["rows"]["orb.orient"]
+    assert row["kernels"] == 48 and row["syncs"] == 0, row
 
 
 def test_by_span_syncs_are_the_ones_sync_debug_mode_reports(traced_pairs):
