@@ -25,6 +25,15 @@ descending area, so among equal areas rows are in ascending root order
 unstably there (``ccl.py:338``, ``:618``), so its order among ties is
 unspecified; the set of rows is the same whenever the capacity covers
 every component.
+
+Spans (``profiling.span``): ``ccl`` around ``ccl_features``, holding
+``ccl.label`` (K2a); inside ``ccl_features_from_labels``, ``ccl.runs``
+(run records and the row-overflow test), ``ccl.compact`` (K3, its
+capacity test and the record sort), ``ccl.stats`` (the segmented
+reductions and the top-C), or ``ccl.pixels`` where the pixel path runs.
+The host reads two device values on the run-record path (the overflow
+and K3's ``ok``) and one more on the pixel path; ``ccl_features`` adds
+each call's count to ``profiling.host_syncs()``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from compv_tpu_torch.ops.kernels import ccl_kernel, compact_kernel
+from compv_tpu_torch.profiling import count_host_syncs, span
 
 __all__ = ["CclConfig", "CclResult", "label_components",
            "label_components_seeded", "extract_runs", "ccl_features",
@@ -90,9 +100,13 @@ def ccl_features(binary: torch.Tensor, config: CclConfig = CclConfig()
                  ) -> CclResult:
     """Label + extract per-component features, top max_components by area
     (reference: core/ccl/compv_core_ccl_lsl_result.cxx)."""
-    lbl = label_components(binary, config.connectivity,
-                           config.max_iterations)
-    return ccl_features_from_labels(lbl, config)
+    with span("ccl"):
+        with span("ccl.label"):
+            lbl = label_components(binary, config.connectivity,
+                                   config.max_iterations)
+        res, syncs = _features(lbl, config)
+    count_host_syncs("ccl_features", syncs)
+    return res
 
 
 # --------------------------------------------------------------- helpers
@@ -257,19 +271,51 @@ def ccl_features_from_labels(lbl: torch.Tensor, config: CclConfig = CclConfig()
     records (label, y, x0, x1) carry all box / area / centroid information:
     runs are extracted per row, grouped by label with one sort over the
     records, and reduced with segmented scans."""
+    return _features(lbl, config)[0]
+
+
+def _features(lbl: torch.Tensor, config: CclConfig) -> tuple:
+    """``ccl_features_from_labels`` and the number of device values it
+    read on the host."""
     h, w = lbl.shape
     c = config.max_components
     kk = min(config.max_runs_per_row, -(-w // 2))
     r = h * kk
     if not r * (max(w, h) + 2) < 2 ** 31:
-        return _ccl_features_pixels(lbl, config)
+        return _ccl_features_pixels(lbl, config), 1
 
-    keyu, val, counts = run_records(lbl, kk)
-    overflow = bool((counts > kk).any())
+    with span("ccl.runs"):
+        keyu, val, counts = run_records(lbl, kk)
+        overflow = bool((counts > kk).any())
+    syncs = 1
+    if overflow:
+        return _ccl_features_pixels(lbl, config), syncs + 1
     lb_bits = max(1, (h * w - 1).bit_length())
     x_bits = max(1, w.bit_length())
 
-    def stats_sorted(ku, vs):
+    with span("ccl.compact"):
+        if lb_bits + x_bits <= 32 and kk % 8 == 0:
+            # the compactor shrinks the record sort from H * K padded
+            # slots to an 8-aligned concatenation of the rows' runs
+            ka, vb, total, okc = compact_kernel.compact_rows(
+                keyu.to(torch.int32), val, counts, _CAP8)
+            fits = bool(okc)
+            syncs += 1
+            if fits:
+                kuc = ka.to(torch.int64) & _U32_SENT
+                # slots past the ragged total are unwritten: sentinel them
+                slots = torch.arange(_CAP8 * 8, device=lbl.device)
+                kuc = torch.where(slots < total, kuc, _U32_SENT)
+                ku, order = torch.sort(kuc, stable=True)
+                vs = vb[order]
+        else:
+            fits = True
+            ku, order = torch.sort(keyu.reshape(-1), stable=True)
+            vs = val.reshape(-1)[order]
+    if not fits:
+        return _ccl_features_pixels(lbl, config), syncs + 1
+
+    with span("ccl.stats"):
         # (label << x_bits | x0) groups by label and orders runs by x0
         # within a segment; the value packs (y, x1)
         sentinel = ku == _U32_SENT
@@ -277,86 +323,75 @@ def ccl_features_from_labels(lbl: torch.Tensor, config: CclConfig = CclConfig()
         x0s = torch.where(sentinel, w, ku & ((1 << x_bits) - 1)
                           ).to(torch.int32)
         x1s, ys = vs % (w + 1), vs // (w + 1)
-        return _result(lbl, _seg_stats_from_runs(ks, x0s, x1s, ys, w, h, c))
-
-    if overflow:
-        return _ccl_features_pixels(lbl, config)
-    if lb_bits + x_bits <= 32 and kk % 8 == 0:
-        # the compactor shrinks the record sort from H * K padded slots to
-        # an 8-aligned concatenation of the rows' runs
-        ka, vb, total, okc = compact_kernel.compact_rows(
-            keyu.to(torch.int32), val, counts, _CAP8)
-        if not bool(okc):
-            return _ccl_features_pixels(lbl, config)
-        kuc = ka.to(torch.int64) & _U32_SENT
-        # slots past the ragged total are unwritten: sentinel them
-        slots = torch.arange(_CAP8 * 8, device=lbl.device)
-        kuc = torch.where(slots < total, kuc, _U32_SENT)
-        ku, order = torch.sort(kuc, stable=True)
-        return stats_sorted(ku, vb[order])
-    ku, order = torch.sort(keyu.reshape(-1), stable=True)
-    return stats_sorted(ku, val.reshape(-1)[order])
+        return (_result(lbl, _seg_stats_from_runs(ks, x0s, x1s, ys, w, h, c)),
+                syncs)
 
 
 def _ccl_features_pixels(lbl: torch.Tensor, config: CclConfig) -> CclResult:
     """Capacity-free pixel-sort extraction: the fallback when a row exceeds
     max_runs_per_row. One stable sort of [label, flat index], then
     per-segment reductions. Sums are exact int64 here on every image size
-    (the reference keeps raw f32 prefix sums past ~8 MP, which drift)."""
-    h, w = lbl.shape
-    n = h * w
-    c = config.max_components
-    big = 1 << 30
-    dev = lbl.device
-    flat = lbl.reshape(-1)
-    key = torch.where(flat >= 0, flat, big)
-    key_s, fidx_s = torch.sort(key, stable=True)     # raster order inside
-    is_first = (key_s != _prev1d(key_s, -1)) & (key_s < big)
-    vmask = key_s < big
-    num = is_first.sum(dtype=torch.int32)
-    seg = torch.cumsum(is_first, 0) - 1              # segment of each slot
-    seg = torch.where(vmask, seg, 0)
-    nseg = max(int(num), 1)
-    x = fidx_s % w
-    y = fidx_s // w
+    (the reference keeps raw f32 prefix sums past ~8 MP, which drift).
+    The host reads one device value (the component count)."""
+    with span("ccl.pixels"):
+        h, w = lbl.shape
+        n = h * w
+        c = config.max_components
+        big = 1 << 30
+        dev = lbl.device
+        flat = lbl.reshape(-1)
+        key = torch.where(flat >= 0, flat, big)
+        key_s, fidx_s = torch.sort(key, stable=True)     # raster order inside
+        is_first = (key_s != _prev1d(key_s, -1)) & (key_s < big)
+        vmask = key_s < big
+        num = is_first.sum(dtype=torch.int32)
+        seg = torch.cumsum(is_first, 0) - 1              # segment of each slot
+        seg = torch.where(vmask, seg, 0)
+        nseg = max(int(num), 1)
+        x = fidx_s % w
+        y = fidx_s // w
 
-    def seg_reduce(v, how, init):
-        out = torch.full((nseg,), init, dtype=torch.int64, device=dev)
-        return out.scatter_reduce_(0, seg[vmask], v[vmask], reduce=how)
+        def seg_reduce(v, how, init):
+            out = torch.full((nseg,), init, dtype=torch.int64, device=dev)
+            return out.scatter_reduce_(0, seg[vmask], v[vmask], reduce=how)
 
-    area_seg = seg_reduce(torch.ones_like(x), "sum", 0)
-    sumx_seg = seg_reduce(x, "sum", 0)
-    sumy_seg = seg_reduce(y, "sum", 0)
-    minx_seg = seg_reduce(x, "amin", w)
-    maxx_seg = seg_reduce(x, "amax", -1)
-    maxy_seg = seg_reduce(y, "amax", -1)
+        area_seg = seg_reduce(torch.ones_like(x), "sum", 0)
+        sumx_seg = seg_reduce(x, "sum", 0)
+        sumy_seg = seg_reduce(y, "sum", 0)
+        minx_seg = seg_reduce(x, "amin", w)
+        maxx_seg = seg_reduce(x, "amax", -1)
+        maxy_seg = seg_reduce(y, "amax", -1)
 
-    # top-C by area over slot space, as the reference: f32 areas, stable
-    # descending sort (ties: ascending slot = ascending root)
-    area_slots = torch.where(is_first, area_seg[seg], 0).to(torch.float32)
-    tkey = torch.where(is_first, -area_slots, torch.inf)
-    neg_s, pos_s = torch.sort(tkey, stable=True)
-    kk = min(c, n)
-    vals = F.pad(torch.where(neg_s[:kk] < 0, -neg_s[:kk], 0.0), (0, c - kk))
-    pos = F.pad(pos_s[:kk], (0, c - kk))
-    comp_valid = vals > 0
-    sid = seg[pos]
+        # top-C by area over slot space, as the reference: f32 areas, stable
+        # descending sort (ties: ascending slot = ascending root)
+        area_slots = torch.where(is_first, area_seg[seg], 0).to(
+            torch.float32)
+        tkey = torch.where(is_first, -area_slots, torch.inf)
+        neg_s, pos_s = torch.sort(tkey, stable=True)
+        kk = min(c, n)
+        vals = F.pad(torch.where(neg_s[:kk] < 0, -neg_s[:kk], 0.0),
+                     (0, c - kk))
+        pos = F.pad(pos_s[:kk], (0, c - kk))
+        comp_valid = vals > 0
+        sid = seg[pos]
 
-    def pick(arr):
-        return torch.where(comp_valid, arr, 0).to(torch.int32)
+        def pick(arr):
+            return torch.where(comp_valid, arr, 0).to(torch.int32)
 
-    m00 = torch.clamp(vals, min=1.0)
-    # the reference renders f32(sum) / f32(area); an exact int64 sum
-    # rounds once to f32 here
-    return CclResult(
-        labels=lbl,
-        num_components=num,
-        area=torch.where(comp_valid, vals.to(torch.int32), 0),
-        box_x0=pick(minx_seg[sid]),
-        box_y0=pick(key_s[pos] // w),
-        box_x1=pick(maxx_seg[sid]),
-        box_y1=pick(maxy_seg[sid]),
-        cx=torch.where(comp_valid, sumx_seg[sid].to(torch.float32) / m00, 0.0),
-        cy=torch.where(comp_valid, sumy_seg[sid].to(torch.float32) / m00, 0.0),
-        valid=comp_valid,
-    )
+        m00 = torch.clamp(vals, min=1.0)
+        # the reference renders f32(sum) / f32(area); an exact int64 sum
+        # rounds once to f32 here
+        return CclResult(
+            labels=lbl,
+            num_components=num,
+            area=torch.where(comp_valid, vals.to(torch.int32), 0),
+            box_x0=pick(minx_seg[sid]),
+            box_y0=pick(key_s[pos] // w),
+            box_x1=pick(maxx_seg[sid]),
+            box_y1=pick(maxy_seg[sid]),
+            cx=torch.where(comp_valid,
+                           sumx_seg[sid].to(torch.float32) / m00, 0.0),
+            cy=torch.where(comp_valid,
+                           sumy_seg[sid].to(torch.float32) / m00, 0.0),
+            valid=comp_valid,
+        )

@@ -15,7 +15,11 @@ The reference's incremental gray-level ladder, as the JAX package runs it:
     tier that covers the level's widest row. The skip test and the tier
     choice are host decisions: a device-to-host sync for each level and a
     second one for each changed level (module-level ``last_syncs`` holds
-    the count of the last call).
+    the count of the last call). On CPU tensors K2b's twin gets H * W
+    pointer rounds, a bound no component's geodesic diameter exceeds: on
+    a bright page the background is one maze-like component that takes
+    more than the twin's default 64, where the card's union-find has no
+    cap.
 
   phase 2 (batched small-table math): variation against the +delta level,
     local-minimum stability against the levels above and below through
@@ -25,6 +29,13 @@ The reference's incremental gray-level ladder, as the JAX package runs it:
 Bounded deviations from the exact component tree are the reference's own
 (sampled levels, no veto from below-min-area children) and are flagged in
 ``overflowed`` where a capacity clips.
+
+Spans (``profiling.span``): ``mser`` around ``mser_detect``, holding one
+``mser.level`` a ladder level (attribute ``level``, the gray level; 51 at
+the defaults) and ``mser.stability`` (phase 2). ``mser_detect`` adds its
+syncs to ``profiling.host_syncs()``: ``last_syncs`` plus its own read of
+``overflowed``. Host-to-device copies (phase 2's three level-index
+tables) are not counted.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch.nn.functional as F
 from compv_tpu_torch.features.ccl import (extract_runs, label_components,
                                           label_components_seeded)
 from compv_tpu_torch.ops.topk import top_k
+from compv_tpu_torch.profiling import count_host_syncs, span
 
 __all__ = ["MserConfig", "MserResult", "mser_detect", "mser_region_mask",
            "mser_region_points"]
@@ -164,10 +176,8 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
     f = img if config.dark else (255 - img.to(torch.int32)).to(torch.uint8)
     fi = f.to(torch.int32)
 
-    cand_levels, plus_levels, all_levels = ladder_levels(config)
-    pos = {t: i for i, t in enumerate(all_levels)}
+    all_levels = ladder_levels(config)[2]
     n_lv = len(all_levels)
-    n_cand = len(cand_levels)
     # run-capacity tiers, ending in an exact ceil(W/2) tier (clamped only
     # when the int32 area-sum bound forbids it: flagged via counts)
     w_exact = -(-w // 2)
@@ -176,7 +186,6 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
                    | {min(w_exact, sum_cap)})
     cap = min(config.max_candidates, h * tiers[0])
     amin = max(int(config.min_area * n), 1)
-    amax = int(config.max_area * n)
     lb_bits = max(1, (n - 1).bit_length())
     len_bits = max(1, w.bit_length())
     idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(h, w)
@@ -190,25 +199,43 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
     root = torch.full((cap,), -1, dtype=torch.int32, device=dev)
     car = torch.zeros((cap,), dtype=torch.int32, device=dev)
     for i, t in enumerate(all_levels):
-        fgm = fi <= t
-        syncs += 1
-        if bool((fgm != (lbl >= 0)).any()):
-            init = torch.where(lbl >= 0, lbl, idx)
-            lbl = label_components_seeded(fgm, init, 8)
-            # tier dispatch: the wide-capacity sorts only where needed
-            fgl = lbl >= 0
-            starts = fgl & ~F.pad(fgl, (1, 0), value=False)[:, :-1]
-            mx = int(starts.sum(dim=1).max()) if h else 0
+        with span("mser.level", level=t):
+            fgm = fi <= t
             syncs += 1
-            kk = tiers[sum(int(mx > t_) for t_ in tiers[:-1])]
-            root, car, over = _level_candidates(lbl, kk, amin, cap, lb_bits,
-                                                len_bits)
-            over_all[i] = over
-        labels_flat[i] = lbl.reshape(-1)
-        cand_root[i] = root
-        cand_area[i] = car
+            if bool((fgm != (lbl >= 0)).any()):
+                init = torch.where(lbl >= 0, lbl, idx)
+                lbl = label_components_seeded(fgm, init, 8,
+                                              max_iterations=n)
+                # tier dispatch: the wide-capacity sorts only where needed
+                fgl = lbl >= 0
+                starts = fgl & ~F.pad(fgl, (1, 0), value=False)[:, :-1]
+                mx = int(starts.sum(dim=1).max()) if h else 0
+                syncs += 1
+                kk = tiers[sum(int(mx > t_) for t_ in tiers[:-1])]
+                root, car, over = _level_candidates(lbl, kk, amin, cap,
+                                                    lb_bits, len_bits)
+                over_all[i] = over
+            labels_flat[i] = lbl.reshape(-1)
+            cand_root[i] = root
+            cand_area[i] = car
     last_syncs = syncs
+    with span("mser.stability"):
+        return _stable_regions(img, config, labels_flat, cand_root,
+                               cand_area, over_all)
 
+
+def _stable_regions(img, config, labels_flat, cand_root, cand_area,
+                    over_all) -> MserResult:
+    """Phase 2 over the ladder's (L, H * W) labels and (L, cap) candidate
+    tables."""
+    h, w = img.shape
+    n = h * w
+    dev = img.device
+    cand_levels, plus_levels, all_levels = ladder_levels(config)
+    pos = {t: i for i, t in enumerate(all_levels)}
+    n_cand = len(cand_levels)
+    cap = cand_root.shape[1]
+    amax = int(config.max_area * n)
     invalid = n + 1
     tbl_root = torch.where(cand_root >= 0, cand_root, invalid)   # (L, cap)
     cand_rows = torch.tensor([pos[t] for t in cand_levels], device=dev)
@@ -323,8 +350,10 @@ def mser_detect(img: torch.Tensor, config: MserConfig = MserConfig()
     if img.dtype != torch.uint8 or img.ndim != 2:
         raise ValueError(f"expected a 2-D uint8 image, got {img.ndim}-D "
                          f"{img.dtype}")
-    res = _mser_impl(img, config)
-    n_over = int(res.overflowed)
+    with span("mser"):
+        res = _mser_impl(img, config)
+        n_over = int(res.overflowed)
+    count_host_syncs("mser_detect", last_syncs + 1)
     if n_over > 0:
         log.warning(
             "MSER capacity overflow at %d level(s): regions may be silently "

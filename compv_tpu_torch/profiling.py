@@ -12,6 +12,10 @@ log-based annotations (CompVTime::nowMillis, CompVDebugMgr). Here:
     its parent and request, stamped on ``torch.profiler``'s clock, and
     never waits on the device. ``span_totals`` gives calls, total and self
     time by name.
+  * host_syncs(): a cumulative counter of the host's reads of device
+    values (``bool(t)``, ``int(t)``: each waits for the device) with the
+    calls they were made in, by entry point (``ccl_features``,
+    ``mser_detect``); always on, one dict update a call.
   * trace(): a ``torch.profiler`` window written as a Chrome trace file,
     checked against the hand kernels' launch counters: a window that
     holds fewer of their device kernels than their wrappers launched
@@ -278,6 +282,23 @@ def hand_kernel_launches() -> Dict[str, int]:
             "sht_accumulate": hough_kernel.sht_accumulate.launches,
             "strip_counts": label_stats.strip_label_counts.launches,
             "orb_orient": orient_kernel.launches}
+
+
+_HOST_SYNCS: Dict[str, List[int]] = {}
+
+
+def count_host_syncs(entry: str, syncs: int) -> None:
+    """Count one call of ``entry`` that read ``syncs`` device values on
+    the host."""
+    row = _HOST_SYNCS.setdefault(entry, [0, 0])
+    row[0] += 1
+    row[1] += syncs
+
+
+def host_syncs() -> Dict[str, dict]:
+    """The host-sync counter since the process started, by entry point:
+    ``{"calls": n, "syncs": s}``."""
+    return {e: {"calls": c, "syncs": s} for e, (c, s) in _HOST_SYNCS.items()}
 
 
 def window_shortfall(launched: Dict[str, int],

@@ -609,6 +609,15 @@ def _features_cases():
              strength=values(rs, "f32", (8,), 0, 9),
              valid=rs.random(8) < 0.7), 23, 17], {}))
 
+    # a bright text page, whose background at the high levels is one
+    # maze-like component: K2b's CPU twin took more than its default 64
+    # pointer rounds there and raised, where the card's union-find has no
+    # cap (seed 0 is such a page)
+    _add(f"{F}.mser", "mser_detect", "64x96", lambda rs: (
+        [text_page(rs, 64, 96)], {"config": cfg(f"{F}.mser", "MserConfig",
+                                                dark=False)}),
+         seed=0, tag="bright_text")
+
     # matchers
     M = "matchers.bruteforce"
     for nq, nt in ((5, 7), (1, 1), (0, 4), (3, 0), (1, 2)):
@@ -805,6 +814,21 @@ def scene(rs, h, w, dt="u8"):
             [10, 240])
     img = np.clip(img + rs.normal(size=(h, w)) * 3, 0, 255)
     return (img if dt in FLOATS else np.round(img)).astype(DTYPES[dt])
+
+
+def text_page(rs, h, w):
+    """A (h, w) u8 page of dark glyph-like strokes (20) on a bright ground
+    (235): glyph rows every 13 px, cells every 28, strokes thickened a
+    pixel right, a 3-tap smear and noise of sigma 3."""
+    img = np.full((h, w), 235.0)
+    for y in range(4, h - 9, 13):
+        for x in range(4, w - 13, 28):
+            g = rs.random((9, 12 + rs.integers(0, 10))) < 0.45
+            g[:, 1:] |= g[:, :-1]
+            img[y:y + 9, x:x + g.shape[1]][g[:, :w - x]] = 20
+    img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1)) / 3
+    return np.clip(np.round(img + rs.normal(size=(h, w)) * 3), 0,
+                   255).astype(np.uint8)
 
 
 def desc(rs, n):
