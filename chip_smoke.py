@@ -30,16 +30,17 @@ a fresh process and after a load of other work):
     python3 chip_smoke.py --trace-probe
 
 With --examples it only runs phase 22, with --bench only phase 23, with
---sweep only phase 24 and with --orient only phase 25 (each after phase
-1's build):
+--sweep only phase 24, with --orient only phase 25 and with --level-areas
+only phase 26 (each after phase 1's build):
 
     python3 chip_smoke.py --examples
     python3 chip_smoke.py --bench
     python3 chip_smoke.py --sweep
     python3 chip_smoke.py --orient
+    python3 chip_smoke.py --level-areas
 
 Phases, each printing its lines before the last:
-  1. device and build: the card's name and power limit, the six kernel
+  1. device and build: the card's name and power limit, the seven kernel
      sources built in parallel (one nvcc each), their ptxas lines;
   2. kernel vs twin: the FAST kernel K1 against its plain PyTorch twin, by
      exact equality, on the 720p scene and its pyramid, uniform noise,
@@ -78,8 +79,8 @@ Phases, each printing its lines before the last:
      CUDA graph and, where torch.profiler recorded the window, by it too;
   7. the text-blob slice: features.ccl.ccl_features on the text binary and
      features.mser.mser_detect on the text scene at full width, with launch
-     counts, scipy's component count, determinism, and the same calls
-     through the twins;
+     counts (K7 once a changed ladder level, as K2b), scipy's component
+     count, determinism, and the same calls through the twins;
   8. times of the text-blob slice (bench.py's ccl_label_text,
      ccl_boxes_text and mser_text rows, each also under torch.profiler for
      its device-busy time, device operations and idle share) and of K2a,
@@ -258,7 +259,8 @@ Phases, each printing its lines before the last:
      the hand kernels that call launched as BENCH_LAUNCHES (K1 once in the
      FAST row, K1 and the orientation kernel K6 16 times each in
      frontend_pair_720p, K2a in ccl_label_text, K3
-     in ccl_boxes_text, K2b 49 times in mser_text, K4 in hough_sht, none
+     in ccl_boxes_text, K2b and K7 49 times each in mser_text, K4 in
+     hough_sht, none
      elsewhere); then each row's call in this process, timed by CUDA
      events and under torch.profiler (device busy, launches, idle share),
      and scripts/roofline_torch.py's K1, K2a and K4 rows, each share of
@@ -279,7 +281,15 @@ Phases, each printing its lines before the last:
      twin on the card for the u8 level and an f32 image with fractions,
      one counted launch and one kernel node a call; per level its device
      and event time, the twin's time and its bound (the disc pixels read
-     once at 3.35 TB/s, or the moments' f32 operations).
+     once at 3.35 TB/s, or the moments' f32 operations);
+ 26. (run after phase 8) MSER's ladder level areas K7, which replaces no
+     TPU kernel: at every changed level of the text scene's ladder (K2b's
+     labels, 1182 x 1122), each call equal to its twin on the card (root,
+     area, over), one counted launch and three kernel nodes a call, the
+     scratch table zero after the ladder; device time a call by its three
+     kernels and level by level, event time, the twin's device and event
+     time and device operations a level, and its bound (the labels read
+     once and the candidate table written once at 3.35 TB/s).
 
 Each phase prints its wall seconds on a line of its own ({"phase_s":
 ...}), and the line before the card's gives them all with the total.
@@ -589,20 +599,20 @@ def phase1_device_and_build():
     from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
                                              compact_kernel, fast_kernel,
                                              hough_kernel, label_stats,
-                                             orient_kernel)
+                                             level_areas, orient_kernel)
 
     dev = require_cuda()
     card = card_line()
     emit(card)
     names = ("fast_kernel", "ccl_kernel", "compact_kernel", "hough_kernel",
-             "label_stats", "orient_kernel")
+             "label_stats", "orient_kernel", "level_areas")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         native = pool.submit(native_rt.native_available)   # g++, slice 5
         paths = dict(zip(names, pool.map(_build.build, names)))
         check(native.result(), "g++ did not build the native runtime")
     for module in (fast_kernel, ccl_kernel, compact_kernel, hough_kernel,
-                   label_stats, orient_kernel):
+                   label_stats, orient_kernel, level_areas):
         module._kernel_lib()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text()
@@ -1210,6 +1220,121 @@ def phase25_orient_kernel(dev, card: str, scene: np.ndarray) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MSER's ladder level areas (K7): it replaces no TPU kernel; the twin's run
+# record chain was ~115 launches and a host read a changed level
+
+
+def text_ladder_labels(f: torch.Tensor, config) -> list:
+    """K2b's labels at each changed level of MSER's ladder on ``f``
+    (dark mode), as mser_detect makes them."""
+    from compv_tpu_torch.features.mser import ladder_levels
+    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
+
+    h, w = f.shape
+    idx = torch.arange(h * w, dtype=torch.int32, device=f.device).reshape(h, w)
+    lbl = torch.full((h, w), -1, dtype=torch.int32, device=f.device)
+    out = []
+    for t in ladder_levels(config)[2]:
+        fg = f <= t
+        if bool((fg != (lbl >= 0)).any()):
+            lbl = ck.ccl_label_seeded(fg, torch.where(lbl >= 0, lbl, idx))
+            out.append(lbl)
+    return out
+
+
+def phase26_level_areas(dev, card: str, text: np.ndarray) -> dict:
+    """K7 at the text scene's shapes: every changed level of its MSER
+    ladder (1182 x 1122, mser_detect's amin and cap), each call against
+    its twin on the card, exact, one launch counted and three kernel nodes
+    (a captured graph's) a call, the scratch zero after the ladder; then
+    device time a call (profiler) by kernel and by level, event time (CUDA
+    events over the ladder's calls back to back), the twin's device time,
+    device operations and event time a level, and the bound."""
+    from compv_tpu_torch.features.mser import MserConfig
+    from compv_tpu_torch.ops.kernels import level_areas as la
+
+    cfg = MserConfig()
+    f = torch.from_numpy(text).to(dev)
+    labels = text_ladder_labels(f, cfg)
+    h, w = text.shape
+    n = h * w
+    amin = max(int(cfg.min_area * n), 1)
+    cap = min(cfg.max_candidates, h * la.run_tiers(h, w, cfg.run_tiers)[0])
+    buf = la.scratch(n, dev)
+    root = torch.empty((cap,), dtype=torch.int32, device=dev)
+    area = torch.empty_like(root)
+    over = torch.empty((), dtype=torch.int32, device=dev)
+    found = []
+    for k, lbl in enumerate(labels):
+        before = la.launches
+        la.level_candidates(lbl, amin, cap, root, area, over, buf)
+        check(la.launches == before + 1, "K7 did not count its launch")
+        want = la._level_candidates_ref(lbl, amin, cap, cfg.run_tiers)
+        for name, got, x in zip(("root", "area", "over"), (root, area, over),
+                                want):
+            check(torch.equal(got, x.reshape(got.shape)),
+                  f"level {k}: K7 != twin in {name}")
+        found.append(int((root >= 0).sum()))
+    check(not bool(buf[:n].any()), "K7 left its count table non-zero")
+
+    def call(lbl=labels[-1]):
+        la.level_candidates(lbl, amin, cap, root, area, over, buf)
+
+    nodes = captured_nodes(call)
+    check(nodes == [0, 0, 0], f"a K7 call issued {nodes}, not three kernels")
+
+    def kernel_all():
+        for lbl in labels:
+            la.level_candidates(lbl, amin, cap, root, area, over, buf)
+
+    def twin_all():
+        for lbl in labels:
+            la._level_candidates_ref(lbl, amin, cap, cfg.run_tiers)
+
+    events = device_events(kernel_all)[0]
+    by_kernel, per_level = {}, None
+    for name, us in events:
+        key = name.split("::")[-1].split("(")[0]
+        by_kernel[key] = by_kernel.get(key, 0.0) + us / len(labels)
+    if len(events) == 3 * len(labels):
+        per_level = [sum(us for _, us in events[3 * k:3 * k + 3])
+                     for k in range(len(labels))]
+    twin_events = device_events(twin_all)[0]
+    # bytes: the labels read once, the candidate table written once; the
+    # count table's write and read back (8 B a pixel) stay in the L2.
+    # Operations: about four int32 operations a pixel
+    bnd = bound(4 * n + 8 * cap + 4, 4 * n, INT32_OPS_PER_S)
+    reps = TIMING_REPS["orient"]
+    out = {"phase": 26, "card": card, "shape": [h, w], "amin": amin,
+           "cap": cap, "levels": len(labels),
+           "candidates_per_level": found,
+           "device_us": (sum(by_kernel.values()) if events else
+                         device_ms(kernel_all, 1) * 1e3 / len(labels)),
+           "device_us_by_kernel": by_kernel,
+           "device_us_per_level": per_level,
+           "event_us": cuda_ms(kernel_all, reps=reps) * 1e3 / len(labels),
+           "twin_device_us": (sum(us for _, us in twin_events) / len(labels)
+                              if twin_events else None),
+           "twin_device_ops": (len(twin_events) / len(labels)
+                               if twin_events else None),
+           "twin_us": cuda_ms(twin_all, reps=3) * 1e3 / len(labels),
+           "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"],
+           "bound_with_table_us": (4 * n + 8 * n + 8 * cap + 4)
+           / HBM_BYTES_PER_S * 1e6,
+           "bars": "kernel == twin on the card (torch.equal: root, area, "
+                   "over) on every changed level; one counted launch and "
+                   "three kernel nodes a call; the scratch zero after",
+           "timing": f"per call, mean over the {len(labels)} changed "
+                     f"levels; event: median of {reps} CUDA-event timings "
+                     "of the ladder's calls back to back, twin: of 3; "
+                     "device times by the profiler"}
+    check(out["bound_us"] <= out["device_us"],
+          f"the K7 bound above its device time: {out}")
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the text-blob path: CCL labeler K2a / K2b, row compactor K3
 
 
@@ -1413,11 +1538,14 @@ def phase6_ccl_kernels_vs_twins(dev, text: np.ndarray):
 
 @contextlib.contextmanager
 def ccl_twins():
-    """Route labeling and compaction through the twins (this phase only)."""
+    """Route labeling, compaction and the ladder's level areas through the
+    twins (this phase only)."""
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+    from compv_tpu_torch.ops.kernels import level_areas as la
 
     saved = ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows
+    saved_areas = la.level_candidates
 
     def label(binary, connectivity=8, max_iterations=64):
         h, w = binary.shape
@@ -1428,12 +1556,21 @@ def ccl_twins():
     def seeded(binary, init, connectivity=8, max_iterations=64):
         return ck.label_ref(binary > 0, init, connectivity, max_iterations)
 
+    def candidates(lbl, amin, cap, root, area, over, buf=None,
+                   tiers=(112, 320)):
+        r, a, o = la._level_candidates_ref(lbl, amin, cap, tiers)
+        root.copy_(r)
+        area.copy_(a)
+        over.copy_(o.reshape(over.shape))
+
     ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows = (
         label, seeded, cpk.compact_ref)
+    la.level_candidates = candidates
     try:
         yield
     finally:
         ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows = saved
+        la.level_candidates = saved_areas
 
 
 def same(a, b, what: str) -> None:
@@ -1450,6 +1587,7 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
     from compv_tpu_torch.features.mser import MserConfig, mser_detect
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
+    from compv_tpu_torch.ops.kernels import level_areas as la
 
     text_bin_np = (text < 128).astype(np.uint8) * 255
     text_bin = torch.from_numpy(text_bin_np).to(dev)
@@ -1477,13 +1615,16 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
 
     cfg = MserConfig()
     torch.cuda.synchronize()
-    ck.ccl_label_seeded.launches = 0
+    ck.ccl_label_seeded.launches = la.launches = 0
     mres = mser_detect(img, cfg)
     torch.cuda.synchronize()
     counts["K2b"] = ck.ccl_label_seeded.launches
+    counts["K7"] = la.launches
     syncs = mser_mod.last_syncs
     check(counts["K2b"] == n_levels,
           f"K2b launches {counts['K2b']} != {n_levels} changed levels")
+    check(counts["K7"] == n_levels,
+          f"K7 launches {counts['K7']} != {n_levels} changed levels")
     regions = int(mres.valid.sum())
     check(regions > 0, "mser_detect found no region on the text scene")
     same(mres, mser_detect(img, cfg), "mser_detect repeat")
@@ -3504,6 +3645,7 @@ def launch_counts() -> dict:
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
+    from compv_tpu_torch.ops.kernels import level_areas as la
     from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
     return {"K1": fk.launches, "K2a": ck.ccl_label.launches,
@@ -3511,7 +3653,7 @@ def launch_counts() -> dict:
             "K3": cpk.compact_rows.launches,
             "K4": hk.sht_accumulate.launches,
             "K5": ls.strip_label_counts.launches,
-            "K6": ok.launches}
+            "K6": ok.launches, "K7": la.launches}
 
 
 def reset_launch_counts() -> None:
@@ -3520,9 +3662,10 @@ def reset_launch_counts() -> None:
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
+    from compv_tpu_torch.ops.kernels import level_areas as la
     from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
-    fk.launches = ok.launches = 0
+    fk.launches = ok.launches = la.launches = 0
     for fn in (ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows,
                hk.sht_accumulate, ls.strip_label_counts):
         fn.launches = 0
@@ -4870,14 +5013,14 @@ def live_frame_gap(result: dict) -> int:
 # ---------------------------------------------------------------- phase 23
 
 # The hand kernels that one call of each bench_torch.py row launches on the
-# card; every row not named launches none. mser_text: K2b on the 49 changed
-# levels of the text scene's ladder (phase 7's count).
+# card; every row not named launches none. mser_text: K2b and K7 on the 49
+# changed levels of the text scene's ladder (phase 7's count).
 BENCH_LAUNCHES = {
     "fast9_nms_detect_fps_1282x720": {"K1": 1},
     "frontend_pair_720p": {"K1": 16, "K6": 16},
     "ccl_label_text": {"K2a": 1},
     "ccl_boxes_text": {"K3": 1},
-    "mser_text": {"K2b": 49},
+    "mser_text": {"K2b": 49, "K7": 49},
     "hough_sht": {"K4": 1},
 }
 # accumulators, card against the CPU: float sums in another order (HOG's
@@ -5252,6 +5395,12 @@ def main() -> int:
         dev, card = phase1_device_and_build()
         timed(25, phase25_orient_kernel, dev, card, scenes()[0])
         return 0
+    if "--level-areas" in sys.argv[1:]:
+        # phase 26 alone
+        sys.path.insert(0, ROOT)
+        dev, card = phase1_device_and_build()
+        timed(26, phase26_level_areas, dev, card, scenes()[1])
+        return 0
     if "--sweep" in sys.argv[1:]:
         # phase 24 alone
         sys.path.insert(0, ROOT)
@@ -5280,6 +5429,7 @@ def main() -> int:
                                             len(pairs))
     times, bounds = timed(8, phase8_text_times, card, text_bin, img, labels,
                           pairs, launches)
+    timed(26, phase26_level_areas, dev, card, text)
     k45_err = timed(9, phase9_hough_kernels_vs_twins, dev, scene, text,
                     pairs, labels)
     gray, edges, board, launches["K4"], launches["K5"] = timed(

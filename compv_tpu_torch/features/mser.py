@@ -9,12 +9,14 @@ The reference's incremental gray-level ladder, as the JAX package runs it:
 
   phase 1 (a host loop over the 51 levels): level t's labels seed level
     t + step through K2b (``label_components_seeded``); a level whose
-    foreground did not change is skipped. Per level, exact component
-    areas come from run records (``extract_runs``) grouped by one sort of
-    packed (label << len_bits | len) keys, at the smallest run-capacity
-    tier that covers the level's widest row. The skip test and the tier
-    choice are host decisions: a device-to-host sync for each level and a
-    second one for each changed level (module-level ``last_syncs`` holds
+    foreground did not change is skipped. Per changed level, the exact
+    component areas and the candidate table (components of at least
+    min_area pixels, ascending root order) come from
+    ``level_areas.level_candidates``: on the card the kernel K7, three
+    launches and no host read; on the CPU its twin, the JAX ladder's run
+    records grouped by a packed key sort at the smallest run-capacity tier
+    that covers the level's widest row. The skip test is a host decision,
+    a device-to-host sync for each level (module-level ``last_syncs`` holds
     the count of the last call). On CPU tensors K2b's twin gets H * W
     pointer rounds, a bound no component's geodesic diameter exceeds: on
     a bright page the background is one maze-like component that takes
@@ -44,10 +46,10 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from compv_tpu_torch.features.ccl import (extract_runs, label_components,
+from compv_tpu_torch.features.ccl import (label_components,
                                           label_components_seeded)
+from compv_tpu_torch.ops.kernels import level_areas
 from compv_tpu_torch.ops.topk import top_k
 from compv_tpu_torch.profiling import count_host_syncs, span
 
@@ -55,13 +57,12 @@ __all__ = ["MserConfig", "MserResult", "mser_detect", "mser_region_mask",
            "mser_region_points"]
 
 _BIG = 1 << 30
-_U32_SENT = 0xFFFFFFFF
 _VAR_SCALE = 65536.0   # variation quantized to i32 fixed point so table
 _VAR_CLAMP = 8000.0    # lookups stay exact (clamp * scale * 2 < 2^31)
 
 log = logging.getLogger(__name__)
 
-# host syncs (level skip + tier choice) of the last _mser_impl call
+# host syncs (the level skip tests) of the last _mser_impl call
 last_syncs = 0
 
 
@@ -133,40 +134,6 @@ def ladder_levels(config: MserConfig):
     return cand, plus, sorted(set(cand) | set(plus))
 
 
-def _level_candidates(lbl, kk, amin, cap, lb_bits, len_bits):
-    """Exact per-component areas of one level's labeling via run records,
-    compacted to the (cap,) candidate table of components with area >=
-    min_area, in ascending root order. Returns (root, area, over)."""
-    run_lbl, run_x0, run_x1, counts = extract_runs(lbl, kk)
-    over_runs = (counts > kk).any()
-    live = run_lbl >= 0
-    length = torch.where(live, run_x1 - run_x0 + 1, 0)
-    # one packed key sort: label groups, the length rides in the low bits
-    # (int64 keys: no separate form when lb_bits + len_bits > 32)
-    keyu = torch.where(live, (run_lbl.to(torch.int64) << len_bits)
-                       | length.to(torch.int64), _U32_SENT).reshape(-1)
-    ku = torch.sort(keyu).values
-    sen = ku == _U32_SENT
-    ks = torch.where(sen, _BIG, ku >> len_bits)
-    ln = torch.where(sen, 0, ku & ((1 << len_bits) - 1))
-    is_first = (ks != F.pad(ks, (1, 0), value=-1)[:-1]) & (ks < _BIG)
-    cs = torch.cumsum(ln, 0)
-    exc = F.pad(cs, (1, 0))[:-1]
-    u = torch.where(is_first, exc, 2 ** 62)
-    nxt = torch.cummin(u.flip(0), 0).values.flip(0)
-    nxt = torch.cat([nxt[1:], cs[-1:]])
-    area = torch.minimum(nxt, cs[-1]) - exc             # valid at is_first
-
-    cand_mask = is_first & (area >= amin)
-    ckey = torch.where(cand_mask, ks, _BIG)
-    root_s, order = torch.sort(ckey, stable=True)
-    area_s = torch.where(cand_mask, area, 0)[order]
-    root = torch.where(root_s[:cap] < _BIG, root_s[:cap], -1)
-    car = torch.where(root >= 0, area_s[:cap], 0)
-    over = (over_runs | (cand_mask.sum() > cap)).to(torch.int32)
-    return root.to(torch.int32), car.to(torch.int32), over
-
-
 def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
     global last_syncs
     h, w = img.shape
@@ -178,26 +145,18 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
 
     all_levels = ladder_levels(config)[2]
     n_lv = len(all_levels)
-    # run-capacity tiers, ending in an exact ceil(W/2) tier (clamped only
-    # when the int32 area-sum bound forbids it: flagged via counts)
-    w_exact = -(-w // 2)
-    sum_cap = max((2 ** 31 - 1) // (h * max(w, 1)), 1)
-    tiers = sorted({min(t, w_exact, sum_cap) for t in config.run_tiers}
-                   | {min(w_exact, sum_cap)})
-    cap = min(config.max_candidates, h * tiers[0])
+    cap = min(config.max_candidates,
+              h * level_areas.run_tiers(h, w, config.run_tiers)[0])
     amin = max(int(config.min_area * n), 1)
-    lb_bits = max(1, (n - 1).bit_length())
-    len_bits = max(1, w.bit_length())
     idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(h, w)
 
     # ---------------- phase 1: incremental labeling + per-level records
     labels_flat = torch.empty((n_lv, n), dtype=torch.int32, device=dev)
-    cand_root = torch.empty((n_lv, cap), dtype=torch.int32, device=dev)
-    cand_area = torch.empty((n_lv, cap), dtype=torch.int32, device=dev)
+    cand_root = torch.full((n_lv, cap), -1, dtype=torch.int32, device=dev)
+    cand_area = torch.zeros((n_lv, cap), dtype=torch.int32, device=dev)
     over_all = torch.zeros((n_lv,), dtype=torch.int32, device=dev)
+    buf = level_areas.scratch(n, dev)
     lbl = torch.full((h, w), -1, dtype=torch.int32, device=dev)
-    root = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    car = torch.zeros((cap,), dtype=torch.int32, device=dev)
     for i, t in enumerate(all_levels):
         with span("mser.level", level=t):
             fgm = fi <= t
@@ -206,18 +165,13 @@ def _mser_impl(img: torch.Tensor, config: MserConfig) -> MserResult:
                 init = torch.where(lbl >= 0, lbl, idx)
                 lbl = label_components_seeded(fgm, init, 8,
                                               max_iterations=n)
-                # tier dispatch: the wide-capacity sorts only where needed
-                fgl = lbl >= 0
-                starts = fgl & ~F.pad(fgl, (1, 0), value=False)[:, :-1]
-                mx = int(starts.sum(dim=1).max()) if h else 0
-                syncs += 1
-                kk = tiers[sum(int(mx > t_) for t_ in tiers[:-1])]
-                root, car, over = _level_candidates(lbl, kk, amin, cap,
-                                                    lb_bits, len_bits)
-                over_all[i] = over
+                level_areas.level_candidates(
+                    lbl, amin, cap, cand_root[i], cand_area[i], over_all[i],
+                    buf, config.run_tiers)
+            elif i:
+                cand_root[i] = cand_root[i - 1]
+                cand_area[i] = cand_area[i - 1]
             labels_flat[i] = lbl.reshape(-1)
-            cand_root[i] = root
-            cand_area[i] = car
     last_syncs = syncs
     with span("mser.stability"):
         return _stable_regions(img, config, labels_flat, cand_root,

@@ -270,18 +270,20 @@ _TRACE_IDS = itertools.count()
 
 def hand_kernel_launches() -> Dict[str, int]:
     """The hand kernels' launch counters, by the name of the one device
-    kernel that each counted launch runs (K1, K2a, K2b, K3, K4, K5 and
-    ORB's orientation kernel)."""
+    kernel that each counted launch runs (K1, K2a, K2b, K3, K4, K5, ORB's
+    orientation kernel K6 and MSER's ladder level areas K7)."""
     from compv_tpu_torch.ops.kernels import (ccl_kernel, compact_kernel,
                                              fast_kernel, hough_kernel,
-                                             label_stats, orient_kernel)
+                                             label_stats, level_areas,
+                                             orient_kernel)
     return {"fast_kernel": fast_kernel.launches,
             "label_tiles": ccl_kernel.ccl_label.launches,
             "merge_seeded": ccl_kernel.ccl_label_seeded.launches,
             "compact": compact_kernel.compact_rows.launches,
             "sht_accumulate": hough_kernel.sht_accumulate.launches,
             "strip_counts": label_stats.strip_label_counts.launches,
-            "orb_orient": orient_kernel.launches}
+            "orb_orient": orient_kernel.launches,
+            "level_areas": level_areas.launches}
 
 
 _HOST_SYNCS: Dict[str, List[int]] = {}

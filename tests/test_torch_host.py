@@ -353,7 +353,7 @@ def test_window_shortfall_names_the_missing_kernels():
         {"fast_kernel": 1}, ["void fast_kernel<9, 16, true>(int)"]) == {}
     assert set(profiling.hand_kernel_launches()) == {
         "fast_kernel", "label_tiles", "merge_seeded", "compact",
-        "sht_accumulate", "strip_counts", "orb_orient"}
+        "sht_accumulate", "strip_counts", "orb_orient", "level_areas"}
 
 
 class _Event:

@@ -77,7 +77,7 @@ def test_mser_text_crop(text_crop, dark):
     _assert_same(got, want)
     if dark:
         assert int(got.valid.sum()) > 0          # glyphs are found
-    # the ladder synced twice per changed level and once per skipped one
+    # the ladder syncs once a level (its skip test), 51 at the defaults
     assert mser.last_syncs >= 51
 
 
