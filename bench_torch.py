@@ -305,20 +305,12 @@ def rows(inp: dict) -> list:
     return [(name, *fns[name], ref) for name, ref in REF_FPS]
 
 
-# profiling.hand_kernel_launches()'s keys (the device kernels' names) as
-# the kernels' ids
-KERNEL_IDS = {"fast_kernel": "K1", "label_tiles": "K2a",
-              "merge_seeded": "K2b", "compact": "K3",
-              "sht_accumulate": "K4", "strip_counts": "K5",
-              "orb_orient": "K6", "level_areas": "K7"}
-
-
 def launch_counts() -> dict:
-    """The hand kernels' launch counters, by id (K1-K5, K6 for ORB's
-    orientation kernel and K7 for MSER's ladder level areas)."""
-    from compv_tpu_torch.profiling import hand_kernel_launches
+    """The hand kernels' launch counters, by id (the rows of
+    ``ops/kernels/_build.KERNELS``)."""
+    from compv_tpu_torch.ops.kernels import _build
 
-    return {KERNEL_IDS[k]: n for k, n in hand_kernel_launches().items()}
+    return _build.launch_counts("id")
 
 
 def card_line() -> str:

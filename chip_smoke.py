@@ -4,12 +4,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-With --text-kernel-times it only times the labelers, the compactor and the
-strip label counter at the text scene's shapes, the FAST kernel at level 0
-of the 720p scene (two-output entry) and the SHT accumulator at the scene's
-edge list, and prints one JSON line; --package-root DIR takes
-compv_tpu_torch from another checkout, so that two versions of a kernel can
-be timed in turns on one card:
+With --text-kernel-times it only runs the kernel times that the full run
+runs after phase 10 (K1-K5 at their paths' shapes, below) and prints their
+JSON line; --package-root DIR takes compv_tpu_torch from another checkout
+(they call only the wrappers' public entries and twins), so that two
+versions of a kernel can be timed in turns on one card:
 
     python3 chip_smoke.py --text-kernel-times [--package-root DIR]
 
@@ -59,9 +58,6 @@ Phases, each printing its lines before the last:
      that differ counted and each traced to the angle, the card's cos / sin
      or the blurred pixels that moved it) and match_pair on the CPU by
      tests/test_torch_frontend.py's bars;
-  5. times of the ORB slice: match_pair and the two-output K1 launch against
-     its twin, as medians of CUDA-event timings; K1's device time and bound
-     on each of the pair's 8 pyramid levels;
   6. CCL kernels vs twins: the labeler K2a / K2b and the row compactor K3
      against their twins, exact, on bench.py's 1122x1182 text scene (its
      binary at both connectivities, every changed level of its MSER ladder
@@ -81,13 +77,6 @@ Phases, each printing its lines before the last:
      features.mser.mser_detect on the text scene at full width, with launch
      counts (K7 once a changed ladder level, as K2b), scipy's component
      count, determinism, and the same calls through the twins;
-  8. times of the text-blob slice (bench.py's ccl_label_text,
-     ccl_boxes_text and mser_text rows, each also under torch.profiler for
-     its device-busy time, device operations and idle share) and of K2a,
-     K2b and K3 against their twins, as medians of CUDA-event timings;
-     K2a and K2b per pass, K2b per ladder level; launches per call of each
-     path; the launch floor (one trivial launch through ctypes, back to
-     back);
   9. Hough kernels vs twins: the SHT accumulator K4 against its twin,
      exact, on the 720p scene's Canny edge list at 1 and 0.5 degree, a
      dense random map, an empty list, a 2160x3840 map (also at rho steps
@@ -108,12 +97,19 @@ Phases, each printing its lines before the last:
      truth; hough_sht on a 2160x3840 map at a rho step of 0.1 against the
      CPU run; K5's own path (the per-strip histograms of every ladder
      level);
- 11. times of the Hough slice (bench.py's canny3x3, hough_sht and
-     hough_kht rows, find_chessboard_corners) and of K4 and K5 against
-     their twins, as medians of CUDA-event timings; K4 also at the
-     checkerboard's 16,384-slot list and at the 2160x3840 map's 88,118-bin
-     accumulator, and one sht_accumulate call as the nodes of a captured
-     CUDA graph (one kernel); K5 also on wide strips and per-pixel labels;
+  kernel times (kernel_times; its phase_s line is named "kernel_times"):
+     K1-K5 at their paths' shapes (K1 at the 720p scene, both maps; K2a,
+     K2b over the text ladder's changed levels, K3 and K5 on the text
+     scene; K4 at the scene's Canny edge list), each once against its
+     twin, exact, then its time by CUDA events around back-to-back calls,
+     its device time by the profiler, its twin's time and its bound; K1
+     also on each of the 720p pair's 8 pyramid levels, each level's bound
+     at or below its device time; K2a and K2b per pass, K2a also on noise,
+     full and checkerboard maps, K2b per ladder level; K4 also at
+     find_chessboard_corners' 16,384-slot list and at the 2160x3840 map's
+     88,118-bin accumulator, and one sht_accumulate call as the nodes of a
+     captured CUDA graph (one kernel). bench_torch.py's rows of these
+     paths are timed by phase 23;
  12. SfM components on the card against the port on the CPU, same inputs:
      find_essential and solve_pnp (sample indices and inliers exact, poses
      within 2e-4 / 1e-4), ba_step on the golden BA problem (goldens.json's
@@ -181,10 +177,6 @@ Phases, each printing its lines before the last:
      from scripts/hog_svm_reference.py) and labels as the CPU's wherever
      |decision| >= 1e-3, the ANN index's recall against exact search, and
      platt_fit against scipy's minimum;
- 18. times of slice 4 (CUDA events) with device busy, idle share and
-     launches by torch.profiler: bench.py's slice-4 rows by their names,
-     hog_8x8_l2hys, svm_train on 2,048 windows, svm_decision on 11,475,
-     pca_compute (11,475 x 3,780 -> 64) and knn_search (11,475 queries);
  19. slice 5 at full width, the host layer driven as the reference's two
      demo paths: the native runtime built by g++ under build/ (the tracked
      native/libcompv_native.so's sha256 the same before and after); a YAML
@@ -275,14 +267,14 @@ Phases, each printing its lines before the last:
      same structure, dtypes and shapes, integers bit-equal and floats
      within the case's tolerance; each of the table's CARD_FAULTS must
      still differ. Counts by module and by dtype;
- 25. (run after phase 5) ORB's orientation kernel K6, which replaces no
+ 25. (run after phase 4) ORB's orientation kernel K6, which replaces no
      TPU kernel: at the 720p scene's 8 pyramid levels with the keypoints,
      budgets and valid flags of ORB's level loop, each call equal to its
      twin on the card for the u8 level and an f32 image with fractions,
      one counted launch and one kernel node a call; per level its device
      and event time, the twin's time and its bound (the disc pixels read
      once at 3.35 TB/s, or the moments' f32 operations);
- 26. (run after phase 8) MSER's ladder level areas K7, which replaces no
+ 26. (run after phase 7) MSER's ladder level areas K7, which replaces no
      TPU kernel: at every changed level of the text scene's ladder (K2b's
      labels, 1182 x 1122), each call equal to its twin on the card (root,
      area, over), one counted launch and three kernel nodes a call, the
@@ -305,11 +297,11 @@ reading is made by CUDA events or left null, counted on the "profiler"
 line; --no-profiler makes every reading that way), twin time, bound (the larger of its
 bytes over the card's memory rate and its operations over the card's peak
 rate, from this run's inputs) and library time (null: no single PyTorch
-call computes any of the six functions); K1-K4 also give their launches
-in one call of each bench_torch.py row (phase 23). The line before the
-last names the card and its power limit; the last line of standard output
-is one JSON object:
-{"ok": true, "device": {...}}.
+call computes any of the eight functions), one entry a row of the hand
+kernels' table (compv_tpu_torch/ops/kernels/_build.py: K1-K7); all but K5
+also give their launches in one call of each bench_torch.py row (phase
+23). The line before the last names the card and its power limit; the last
+line of standard output is one JSON object: {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -329,22 +321,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (name in the kernels line, source, the Pallas function it replaces)
-KERNELS = {
-    "K1": ("fast_strengths_nms", "compv_tpu_torch/csrc/fast_kernel.cu",
-           "compv_tpu/ops/pallas/fast_kernel.py:129"),
-    "K2a": ("ccl_label", "compv_tpu_torch/csrc/ccl_kernel.cu",
-            "compv_tpu/ops/pallas/ccl_kernel.py:149"),
-    "K2b": ("ccl_label_seeded", "compv_tpu_torch/csrc/ccl_kernel.cu",
-            "compv_tpu/ops/pallas/ccl_kernel.py:171"),
-    "K3": ("compact_rows", "compv_tpu_torch/csrc/compact_kernel.cu",
-           "compv_tpu/ops/pallas/compact_kernel.py:47"),
-    "K4": ("sht_accumulate", "compv_tpu_torch/csrc/hough_kernel.cu",
-           "compv_tpu/ops/pallas/hough_kernel.py:74"),
-    "K5": ("strip_label_counts", "compv_tpu_torch/csrc/label_stats.cu",
-           "compv_tpu/ops/pallas/label_stats.py:58"),
-}
-
 
 # The depths and timing repeats of the earlier paths, cut to fit the whole
 # run in half its 1,200 s limit (the value before the cut in the comment):
@@ -356,7 +332,6 @@ LIVE_DEMO_SECONDS = "2"     # "3": phase 22's live_demo program
 # phase 14 times the stages of phase 13's sfm_long run (3 timed runs of
 # its own before) and profiles its second run (2 runs in phase 13 before)
 TIMING_REPS = {             # cuda_ms repeats a reading, by phase and call
-    "pair": 5,              # 20: phase 5, match_pair and K1 / twin
     "sfm_ba": 1,            # 3: phase 14, ba_solve / ba_solve_schur
     "corners": 1,           # 3: phase 16, find_chessboard_corners
     "calibration": 1,       # 2: phase 16, calibrate_camera / the path
@@ -529,19 +504,6 @@ def captured_nodes(fn) -> list:
     return types
 
 
-def host_us(fn, n: int = 1000) -> float:
-    """Host time per call of ``fn`` in microseconds: ``n`` calls made
-    back to back without waiting for the card."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, fp32
 # outside the tensor cores (an FMA counts two), and int32 operations, which
 # run on half of the fp32 lanes and count one each.
@@ -596,24 +558,20 @@ def card_line() -> str:
 def phase1_device_and_build():
     from compv_tpu_torch import native_rt
     from compv_tpu_torch.device import require_cuda
-    from compv_tpu_torch.ops.kernels import (_build, ccl_kernel,
-                                             compact_kernel, fast_kernel,
-                                             hough_kernel, label_stats,
-                                             level_areas, orient_kernel)
+    from compv_tpu_torch.ops.kernels import _build
 
     dev = require_cuda()
     card = card_line()
     emit(card)
-    names = ("fast_kernel", "ccl_kernel", "compact_kernel", "hough_kernel",
-             "label_stats", "orient_kernel", "level_areas")
+    names = tuple(dict.fromkeys(k.source for k in _build.KERNELS))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
         native = pool.submit(native_rt.native_available)   # g++, slice 5
         paths = dict(zip(names, pool.map(_build.build, names)))
         check(native.result(), "g++ did not build the native runtime")
-    for module in (fast_kernel, ccl_kernel, compact_kernel, hough_kernel,
-                   label_stats, orient_kernel, level_areas):
-        module._kernel_lib()
+    for name in names:      # each source's wrapper is the module of its name
+        importlib.import_module(f"compv_tpu_torch.ops.kernels.{name}")
+        _build.LIBRARIES[name].load()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in path.with_suffix(".log").read_text()
                     .splitlines() if "registers" in ln or "spill" in ln]
@@ -832,8 +790,6 @@ def phase4_slice(dev, scene: np.ndarray):
                                               orb_detect_describe)
     from compv_tpu_torch.calib.homography import HomographyConfig
     from compv_tpu_torch.image.pyramid import pyramid_sizes
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
-    from compv_tpu_torch.ops.kernels import orient_kernel as ok
     from compv_tpu_torch.slam.frontend import FrontendConfig, match_pair
 
     cfg = FrontendConfig(orb=OrbConfig(max_features=2000, levels=8),
@@ -844,14 +800,15 @@ def phase4_slice(dev, scene: np.ndarray):
                       if lh >= PATCH_DIAMETER + 2 and lw >= PATCH_DIAMETER + 2)
 
     torch.cuda.synchronize()
-    fk.launches = ok.launches = 0
+    reset_launch_counts()
     res = match_pair(img1, img2, cfg)
     torch.cuda.synchronize()
-    launches = fk.launches
+    counts = launch_counts()
+    launches = counts["K1"]
     check(launches == 2 * levels_used,
           f"K1 launches {launches} != 2 images x {levels_used} levels")
-    check(ok.launches == 2 * levels_used,
-          f"orientation kernel launches {ok.launches} != 2 images x "
+    check(counts["K6"] == 2 * levels_used,
+          f"orientation kernel launches {counts['K6']} != 2 images x "
           f"{levels_used} levels")
 
     num_matches = int(res.num_matches)
@@ -890,7 +847,7 @@ def phase4_slice(dev, scene: np.ndarray):
           "k1_launches": launches, "levels_used": levels_used,
           "twin_path": "identical keypoints and descriptors",
           "card_vs_cpu": on_cpu})
-    return cfg, img1, img2, launches
+    return counts
 
 
 # card vs CPU: largest difference of a keypoint's orientation, in degrees
@@ -1052,59 +1009,6 @@ def k1_bound(img: torch.Tensor, threshold: int = 20) -> dict:
     return out
 
 
-def phase5_times(dev, card: str, cfg, img1, img2):
-    from compv_tpu_torch.features.orb import PATCH_DIAMETER
-    from compv_tpu_torch.image.pyramid import pyramid_sizes
-    from compv_tpu_torch.image.scale import scale_bilinear
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
-    from compv_tpu_torch.slam.frontend import match_pair
-
-    pair_ms = cuda_ms(lambda: match_pair(img1, img2, cfg),
-                      reps=TIMING_REPS["pair"])
-    kernel_ms = cuda_ms(lambda: fk.fast_strengths_and_nms(img1, 20, 9),
-                        reps=TIMING_REPS["pair"], inner=50)
-
-    def twin():
-        s = fk._strengths_ref(img1, 20, 9)
-        return s, fk._nms_ref(s)
-
-    twin_ms = cuda_ms(twin, reps=TIMING_REPS["pair"], inner=5)
-    dev_ms = device_ms(lambda: fk.fast_strengths_and_nms(img1, 20, 9))
-    bound0 = k1_bound(img1)
-    # the level images of the pair's first frame, as the ORB loop makes them
-    levels = []
-    h, w = img1.shape
-    for lv, (lh, lw) in enumerate(pyramid_sizes(h, w, cfg.orb.levels,
-                                                cfg.orb.scale_factor)):
-        if lh < PATCH_DIAMETER + 2 or lw < PATCH_DIAMETER + 2:
-            continue
-        im = img1 if lv == 0 else scale_bilinear(img1, lh, lw)
-        bnd = k1_bound(im)
-        us = dev_ms * 1e3 if lv == 0 else device_ms(
-            lambda im=im: fk.fast_strengths_and_nms(im, 20, 9)) * 1e3
-        levels.append({"shape": [lh, lw], "device_us": us,
-                       "bound_us": bnd["bound_ms"] * 1e3,
-                       "bound_by": bnd["bound_by"],
-                       "worst_case_bound_us": bnd["worst_ms"] * 1e3})
-    check(all(lv["bound_us"] <= lv["device_us"] for lv in levels),
-          f"a K1 bound above its device time: {levels}")
-    emit({"phase": 5, "card": card, "match_pair_720p_ms": pair_ms,
-          "k1_two_output_level0_us": kernel_ms * 1e3,
-          "k1_device_us": dev_ms * 1e3,
-          "k1_twin_level0_us": twin_ms * 1e3,
-          "k1_bound_us": bound0["bound_ms"] * 1e3,
-          "k1_bound_by": bound0["bound_by"],
-          "k1_worst_case_bound_us": bound0["worst_ms"] * 1e3,
-          "k1_levels": levels,
-          "k1_device_us_per_match_pair":
-              2 * sum(lv["device_us"] for lv in levels),
-          "k1_gap_us_per_match_pair":
-              2 * sum(lv["device_us"] - lv["bound_us"] for lv in levels),
-          "timing": "median of 20 CUDA-event timings after warm-up; device "
-                    "times by the profiler"})
-    return (kernel_ms, twin_ms, dev_ms), bound0
-
-
 # ---------------------------------------------------------------------------
 # ORB's orientation kernel (K6): it replaces no TPU kernel; eager PyTorch
 # made the twin's dense moment maps ~380 launches an image and level
@@ -1178,9 +1082,10 @@ def phase25_orient_kernel(dev, card: str, scene: np.ndarray) -> dict:
         frac = im.to(torch.float32) * 1.37 + torch.rand(
             im.shape, generator=gen, device=dev)
         for img in (im, frac):
-            before = ok.launches
+            before = launch_counts()["K6"]
             got = ok.patch_orientation(img, x, y, valid)
-            check(ok.launches == before + 1, "K6 did not count its launch")
+            check(launch_counts()["K6"] == before + 1,
+                  "K6 did not count its launch")
             want = ok._orientation_ref(img, x, y, valid)
             check(torch.equal(got, want),
                   f"level {lv} {img.dtype}: K6 != twin in "
@@ -1266,9 +1171,10 @@ def phase26_level_areas(dev, card: str, text: np.ndarray) -> dict:
     over = torch.empty((), dtype=torch.int32, device=dev)
     found = []
     for k, lbl in enumerate(labels):
-        before = la.launches
+        before = launch_counts()["K7"]
         la.level_candidates(lbl, amin, cap, root, area, over, buf)
-        check(la.launches == before + 1, "K7 did not count its launch")
+        check(launch_counts()["K7"] == before + 1,
+              "K7 did not count its launch")
         want = la._level_candidates_ref(lbl, amin, cap, cfg.run_tiers)
         for name, got, x in zip(("root", "area", "over"), (root, area, over),
                                 want):
@@ -1585,9 +1491,6 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
     from compv_tpu_torch.features import mser as mser_mod
     from compv_tpu_torch.features.ccl import CclConfig, ccl_features
     from compv_tpu_torch.features.mser import MserConfig, mser_detect
-    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
-    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
-    from compv_tpu_torch.ops.kernels import level_areas as la
 
     text_bin_np = (text < 128).astype(np.uint8) * 255
     text_bin = torch.from_numpy(text_bin_np).to(dev)
@@ -1595,10 +1498,10 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
     counts = {}
 
     torch.cuda.synchronize()
-    ck.ccl_label.launches = cpk.compact_rows.launches = 0
+    reset_launch_counts()
     res = ccl_features(text_bin, CclConfig())
     torch.cuda.synchronize()
-    counts["K2a"], counts["K3"] = ck.ccl_label.launches, cpk.compact_rows.launches
+    counts["K2a"], counts["K3"] = (launch_counts()[k] for k in ("K2a", "K3"))
     check(counts["K2a"] == 1 and counts["K3"] == 1,
           f"ccl_features launched K2a {counts['K2a']}x, K3 {counts['K3']}x")
     _, n_scipy = ndimage.label(text_bin_np > 0, structure=np.ones((3, 3)))
@@ -1615,11 +1518,10 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
 
     cfg = MserConfig()
     torch.cuda.synchronize()
-    ck.ccl_label_seeded.launches = la.launches = 0
+    reset_launch_counts()
     mres = mser_detect(img, cfg)
     torch.cuda.synchronize()
-    counts["K2b"] = ck.ccl_label_seeded.launches
-    counts["K7"] = la.launches
+    counts["K2b"], counts["K7"] = (launch_counts()[k] for k in ("K2b", "K7"))
     syncs = mser_mod.last_syncs
     check(counts["K2b"] == n_levels,
           f"K2b launches {counts['K2b']} != {n_levels} changed levels")
@@ -1637,119 +1539,7 @@ def phase7_text_slice(dev, text: np.ndarray, n_levels: int):
           "mser_summary": mser_summary(mres), "host_syncs": syncs,
           "launches": counts,
           "twin_path": "identical CclResult and MserResult"})
-    return text_bin, img, res.labels, counts
-
-
-def launch_floor_ms() -> float:
-    """One trivial launch through ctypes, back to back: K3's entry on an
-    8-row table with every output allocated beforehand."""
-    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
-
-    dev = torch.device("cuda", 0)
-    table = torch.zeros((8, 8), dtype=torch.int32, device=dev)
-    counts = torch.ones((8,), dtype=torch.int32, device=dev)
-    out = torch.empty((128,), dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    ok = torch.empty((), dtype=torch.bool, device=dev)
-    lib = cpk._kernel_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (table.data_ptr(), table.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), out.data_ptr(), total.data_ptr(), ok.data_ptr(),
-            8, 8, 16, stream)
-
-    def launch():
-        check(lib.compv_compact_rows(*args) == 0, "trivial launch failed")
-
-    return cuda_ms(launch, reps=20, inner=200)
-
-
-def phase8_text_times(card: str, text_bin, img, labels, pairs, launches):
-    from compv_tpu_torch.features.ccl import (CclConfig,
-                                              ccl_features_from_labels,
-                                              label_components)
-    from compv_tpu_torch.features.mser import MserConfig, mser_detect
-    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
-    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
-
-    calls = {
-        "ccl_label_text": lambda: label_components(text_bin),
-        "ccl_boxes_text": lambda: ccl_features_from_labels(labels,
-                                                           CclConfig()),
-        "mser_text": lambda: mser_detect(img, MserConfig()),
-    }
-    rows = {
-        "ccl_label_text_ms": cuda_ms(calls["ccl_label_text"], reps=20,
-                                     inner=10),
-        "ccl_boxes_text_ms": cuda_ms(calls["ccl_boxes_text"], reps=20),
-        "mser_text_ms": cuda_ms(calls["mser_text"], reps=5),
-    }
-    profiles = {name: device_profile(fn, rows[f"{name}_ms"])
-                for name, fn in calls.items()}
-    fg = text_bin != 0
-    idx = torch.arange(fg.numel(), dtype=torch.int32,
-                       device=fg.device).reshape(fg.shape)
-    a, b, counts = run_tables(labels, 128)
-
-    def seeded_all(label):
-        def run():
-            for f, init in pairs:
-                label(f, init)
-        return run
-
-    times = {
-        "K2a": (cuda_ms(lambda: ck.ccl_label(text_bin), reps=20, inner=10),
-                cuda_ms(lambda: ck.label_ref(fg, idx, 8), reps=5),
-                device_ms(lambda: ck.ccl_label(text_bin))),
-        "K2b": (cuda_ms(seeded_all(ck.ccl_label_seeded), reps=10) / len(pairs),
-                cuda_ms(seeded_all(ck.label_ref), reps=3) / len(pairs),
-                device_ms(seeded_all(ck.ccl_label_seeded), 1) / len(pairs)),
-        "K3": (cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192), reps=20,
-                       inner=10),
-               cuda_ms(lambda: cpk.compact_ref(a, b, counts, 8192), reps=20),
-               device_ms(lambda: cpk.compact_rows(a, b, counts, 8192))),
-    }
-    # K2b level by level, and the device time of its passes over the ladder
-    per_level = [cuda_ms(lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5,
-                         inner=10) * 1e3 for f, i in pairs]
-    passes = {}
-    for name, us in device_events(seeded_all(ck.ccl_label_seeded))[0]:
-        passes[name] = passes.get(name, 0.0) + us / len(pairs)
-    k2a_passes = {}
-    for name, us in device_events(lambda: ck.ccl_label(text_bin), 10)[0]:
-        k2a_passes[name] = k2a_passes.get(name, 0.0) + us / 10
-    k3_host_us = host_us(lambda: cpk.compact_rows(a, b, counts, 8192))
-    empty_host_us = host_us(lambda: torch.empty(
-        (65536,), dtype=torch.int32, device=fg.device))
-    n = fg.numel()
-    total = int(cpk.compact_ref(a, b, counts, 8192)[2])
-    # bytes: the mask and the seed read once, the label map written once;
-    # the records K3 copies, in and out, and its counts. Operations: about
-    # ten int32 operations a pixel (index, compares, one find step) and
-    # two a copied record, far below the bytes' time.
-    bounds = {
-        "K2a": bound(n + 4 * n, 10 * n, INT32_OPS_PER_S),
-        "K2b": bound(n + 4 * n + 4 * n, 10 * n, INT32_OPS_PER_S),
-        "K3": bound(4 * counts.numel() + 2 * 2 * 4 * total + 5, 2 * 2 * total,
-                    INT32_OPS_PER_S),
-    }
-    emit({"phase": 8, "card": card, **rows, "profiles": profiles,
-          **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
-          **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
-          **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
-          **{f"{k}_bound_us": v["bound_ms"] * 1e3 for k, v in bounds.items()},
-          "k2b_per": "launch, mean over the text ladder's "
-                     f"{len(pairs)} changed levels",
-          "k2b_per_level_us": per_level,
-          "k2b_device_us_per_pass": passes,
-          "k2a_device_us_per_pass": k2a_passes,
-          "k3_host_us": k3_host_us, "torch_empty_host_us": empty_host_us,
-          "launch_floor_us": launch_floor_ms() * 1e3,
-          "launches_per_call": {"label_components": {"K2a": launches["K2a"]},
-                                "ccl_features": {"K2a": launches["K2a"],
-                                                 "K3": launches["K3"]},
-                                "mser_detect": {"K2b": launches["K2b"]}},
-          "timing": "median of CUDA-event timings after warm-up"})
-    return times, bounds
+    return res.labels, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1997,7 +1787,6 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
     from compv_tpu_torch.features.hough import (HoughKhtConfig,
                                                 HoughShtConfig, hough_kht,
                                                 hough_sht)
-    from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
 
     # the module: the package exports its function under the same name
@@ -2008,19 +1797,19 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
     counts = {}
 
     torch.cuda.synchronize()
-    hk.sht_accumulate.launches = 0
+    reset_launch_counts()
     edges = canny(gray, CannyConfig())
     syncs = canny_mod.last_syncs
     lines = hough_sht(edges, HoughShtConfig())
     torch.cuda.synchronize()
-    counts["hough_sht"] = hk.sht_accumulate.launches
+    counts["hough_sht"] = launch_counts()["K4"]
     gx, gy = sobel_gradients(gray)
     kht = hough_kht(edges, gx, gy, HoughKhtConfig())
     torch.cuda.synchronize()
-    counts["hough_kht"] = hk.sht_accumulate.launches - counts["hough_sht"]
+    counts["hough_kht"] = launch_counts()["K4"] - counts["hough_sht"]
     corners = find_chessboard_corners(board, CheckerboardConfig())
     torch.cuda.synchronize()
-    k4_launches = hk.sht_accumulate.launches
+    k4_launches = launch_counts()["K4"]
     counts["find_chessboard_corners"] = k4_launches - counts["hough_sht"]
     board_syncs = canny_mod.last_syncs
     check(counts == {"hough_sht": 1, "hough_kht": 0,
@@ -2072,9 +1861,9 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
     big[1000, 200:3600] = 255
     big[300:1900, 2222] = 255
     fine = HoughShtConfig(rho=0.1, threshold=0.5, max_lines=16)
-    before = hk.sht_accumulate.launches
+    before = launch_counts()["K4"]
     wide_lines = hough_sht(big.to(dev), fine)
-    check(hk.sht_accumulate.launches == before + 1,
+    check(launch_counts()["K4"] == before + 1,
           "hough_sht at rho 0.1 did not launch K4")
     wide_cpu = hough_sht(big, fine)
     check(int(wide_lines.count()) > 0, "hough_sht at rho 0.1 found no line")
@@ -2086,11 +1875,11 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
     # ladder (every 5th gray level of the text scene, rounds 640)
     text_t = torch.from_numpy(text).to(dev)
     torch.cuda.synchronize()
-    ls.strip_label_counts.launches = 0
+    reset_launch_counts()
     strip = [ls.strip_label_counts(label_components(text_t <= t), 640)
              for t in range(5, 256, 5)]
     torch.cuda.synchronize()
-    k5_launches = ls.strip_label_counts.launches
+    k5_launches = launch_counts()["K5"]
     check(k5_launches == 51, f"K5 launches {k5_launches} != 51 levels")
     used = sum(int(r[1].sum()) for r in strip)
     emit({"phase": 10, "hough_slice": "ok",
@@ -2108,113 +1897,7 @@ def phase10_hough_slice(dev, scene: np.ndarray, text: np.ndarray):
           "hough_sht_2160x3840_rho_0.1": {
               "lines": int(wide_lines.count()), "cpu": "identical Lines"},
           "kht_card_equals_cpu": kht_same})
-    return gray, edges, board, k4_launches, k5_launches
-
-
-def phase11_hough_times(card: str, gray, edges, board, text_labels):
-    from compv_tpu_torch.calib.checkerboard import (CheckerboardConfig,
-                                                    find_chessboard_corners)
-    from compv_tpu_torch.features.canny import CannyConfig, canny
-    from compv_tpu_torch.features.edges import sobel_gradients
-    from compv_tpu_torch.features.hough import (HoughKhtConfig,
-                                                HoughShtConfig, hough_kht,
-                                                hough_sht)
-    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
-    from compv_tpu_torch.ops.kernels import hough_kernel as hk
-    from compv_tpu_torch.ops.kernels import label_stats as ls
-
-    def kht_row():
-        e = canny(gray, CannyConfig())
-        gx, gy = sobel_gradients(gray)
-        return hough_kht(e, gx, gy, HoughKhtConfig())
-
-    rows = {
-        "canny3x3_ms": cuda_ms(lambda: canny(gray, CannyConfig()), reps=20),
-        "hough_sht_ms": cuda_ms(
-            lambda: hough_sht(canny(gray, CannyConfig()), HoughShtConfig()),
-            reps=20),
-        "hough_kht_ms": cuda_ms(kht_row, reps=20),
-        "find_chessboard_corners_ms": cuda_ms(
-            lambda: find_chessboard_corners(board, CheckerboardConfig()),
-            reps=20),
-    }
-    args = sht_args(edges, 1.0, 1.0)
-    # the checkerboard's list: Canny at 40 / 100, 16,384 slots
-    board_args = sht_args(canny(board, CheckerboardConfig().canny), 1.0, 1.0,
-                          16384)
-    board_us = device_ms(lambda: hk.sht_accumulate(*board_args)) * 1e3
-    # the rho-tiled form: a 2160x3840 map at rho 0.1, 88,118 bins a theta
-    rs = np.random.default_rng(9)
-    wide_args = sht_args(torch.from_numpy(
-        ((rs.random((2160, 3840)) < 0.008) * 255).astype(np.uint8)
-    ).to(gray.device), 1.0, 0.1)
-    wide_us = device_ms(lambda: hk.sht_accumulate(*wide_args)) * 1e3
-    wide_acc = hk.sht_accumulate(*wide_args)
-    wide_bound = bound(3 * 4 * wide_args[0].numel() + 2 * 4 * wide_args[3]
-                       + 4 * wide_acc.numel(),
-                       7 * int(wide_args[2].sum()) * wide_args[3],
-                       FP32_OPS_PER_S)
-    wide_plan = hk.sht_plan(wide_args[3], wide_acc.shape[1], gray.device)
-    del wide_acc
-    # K5 where the first kernel raised, and at the run compression's worst
-    dev = text_labels.device
-    wide_labels = ck.ccl_label(torch.from_numpy(
-        (rs.random((32, 8192)) < 0.45).astype(np.uint8)).to(dev), 8)
-    per_pixel = torch.arange(64 * 1122, dtype=torch.int32,
-                             device=dev).reshape(64, 1122)
-    k5_other_us = {
-        "4_strips_of_8x8192": device_ms(
-            lambda: ls.strip_label_counts(wide_labels, 256)) * 1e3,
-        "8_strips_of_8x1122_per_pixel_labels": device_ms(
-            lambda: ls.strip_label_counts(per_pixel, 256)) * 1e3}
-    k4_nodes = captured_nodes(lambda: hk.sht_accumulate(*args))
-    check(k4_nodes == [0], "sht_accumulate made other device operations "
-          f"than one kernel: node types {k4_nodes}")
-    times = {
-        "K4": (cuda_ms(lambda: hk.sht_accumulate(*args), reps=20, inner=10),
-               cuda_ms(lambda: hk.sht_accumulate_ref(*args), reps=10),
-               device_ms(lambda: hk.sht_accumulate(*args))),
-        "K5": (cuda_ms(lambda: ls.strip_label_counts(text_labels, 256),
-                       reps=20, inner=10),
-               cuda_ms(lambda: ls.strip_label_counts_ref(text_labels, 256),
-                       reps=10),
-               device_ms(lambda: ls.strip_label_counts(text_labels, 256))),
-    }
-    # K4: the edge list (x, y, weight) and the trig table read, the
-    # accumulator written; a vote (fused multiply-add, multiply, add,
-    # multiply, round, add) is seven fp32 operations, one per valid edge and
-    # theta. K5: the label map read, the strip records written; about four
-    # int32 operations a pixel.
-    slots, valid, n_theta = int(args[0].numel()), int(args[2].sum()), args[3]
-    acc = hk.sht_accumulate(*args)
-    k5_out = ls.strip_label_counts(text_labels, 256)
-    bounds = {
-        "K4": bound(3 * 4 * slots + 2 * 4 * n_theta + 4 * acc.numel(),
-                    7 * valid * n_theta, FP32_OPS_PER_S),
-        "K5": bound(4 * text_labels.numel()
-                    + sum(t.numel() * t.element_size() for t in k5_out),
-                    4 * text_labels.numel(), INT32_OPS_PER_S),
-    }
-    emit({"phase": 11, "card": card, **rows,
-          "k4_edge_slots": slots, "k4_valid_edges": valid,
-          **{f"{k}_bound_us": v["bound_ms"] * 1e3 for k, v in bounds.items()},
-          **{f"{k}_kernel_us": v[0] * 1e3 for k, v in times.items()},
-          **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
-          **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
-          "k4_at": "720p scene's Canny edge list, 1 deg, rho 1",
-          "k4_board_device_us": board_us,
-          "k4_board_slots": int(board_args[0].numel()),
-          "k4_board_valid_edges": int(board_args[2].sum()),
-          "k4_captured_graph_nodes": len(k4_nodes),
-          "k4_plan": hk.sht_plan(n_theta, acc.shape[1], gray.device),
-          "k4_wide": {"n_rho": hk.n_rho_bins(wide_args[4], wide_args[5]),
-              "edges": int(wide_args[2].sum()), "plan": wide_plan,
-              "device_us": wide_us,
-              "bound_us": wide_bound["bound_ms"] * 1e3},
-          "k5_other_device_us": k5_other_us,
-          "k5_at": "text binary's 8-conn labels, rounds 256",
-          "timing": "median of CUDA-event timings after warm-up"})
-    return times, bounds
+    return k4_launches, k5_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2500,7 +2183,6 @@ def sfm_128_run(dev, resume: bool) -> dict:
 
 
 def phase13_sfm_slice(dev) -> dict:
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.slam import sfm as ts
 
     out = {}
@@ -2509,13 +2191,14 @@ def phase13_sfm_slice(dev) -> dict:
     frames, gt, k = ts.render_orbit_sequence(g["n_frames"], g["h"], g["w"],
                                              device=dev)
     torch.cuda.synchronize()
-    fk.launches = 0
+    reset_launch_counts()
     ate, res = ts.sfm_ate(frames, gt, k, device=dev)
     torch.cuda.synchronize()
+    k1 = launch_counts()["K1"]
     out["sfm_8_240p"] = {**sfm_bars(ate, res, gt, load_golden("sfm.json"),
-                                    "sfm.json"), "k1_launches": fk.launches}
-    check(fk.launches == 4 * g["n_frames"],
-          f"K1 launches {fk.launches} != 4 levels x {g['n_frames']} frames")
+                                    "sfm.json"), "k1_launches": k1}
+    check(k1 == 4 * g["n_frames"],
+          f"K1 launches {k1} != 4 levels x {g['n_frames']} frames")
 
     # goldens/sfm_long.json: 32 frames at 480x640 (its second run, which
     # must be identical, is phase 14's profiled run)
@@ -2525,7 +2208,7 @@ def phase13_sfm_slice(dev) -> dict:
     frames, gt, k = ts.render_orbit_sequence(seq["n_frames"], seq["h"],
                                              seq["w"], device=dev)
     torch.cuda.synchronize()
-    fk.launches = 0
+    reset_launch_counts()
     totals, captured = {}, {}       # its stage times: phase 14's readings
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2535,7 +2218,7 @@ def phase13_sfm_slice(dev) -> dict:
         end.record()
     torch.cuda.synchronize()
     totals["run_sfm"] = start.elapsed_time(end)
-    k1_sfm = fk.launches
+    k1_sfm = launch_counts()["K1"]
     check(k1_sfm == 4 * seq["n_frames"],
           f"K1 launches {k1_sfm} != 4 levels x {seq['n_frames']} frames")
     out["sfm_32_480p"] = {**sfm_bars(ate, res, gt, g, "sfm_long.json"),
@@ -2901,8 +2584,6 @@ def phase15_slice3(dev, scene: np.ndarray) -> dict:
     from compv_tpu_torch.calib.utils import undistort_image, undistort_points
     from compv_tpu_torch.features.orb import orb_detect_describe
     from compv_tpu_torch.interop import pose_graph_from_numpy
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
-    from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.slam.pipeline import (KeyframeStore,
                                                PlanarTrackerConfig,
                                                decompose_homography,
@@ -2915,8 +2596,7 @@ def phase15_slice3(dev, scene: np.ndarray) -> dict:
     # A: calibration from images, 8 views of 720x1280
     obj, views, truth = calibration_views(dev)
     torch.cuda.synchronize()
-    fk.launches = 0
-    hk.sht_accumulate.launches = 0
+    reset_launch_counts()
     found = [find_chessboard_corners(v, CheckerboardConfig()) for v in views]
     ok = [bool(f.valid) for f in found]
     img_pts = torch.stack([f.corners for f, v in zip(found, ok) if v])
@@ -2924,7 +2604,7 @@ def phase15_slice3(dev, scene: np.ndarray) -> dict:
     und = undistort_image(views[0], cres.k, cres.dist)
     und_pts = undistort_points(img_pts[0], cres.k, cres.dist)
     torch.cuda.synchronize()
-    k4_cal, k1_cal = hk.sht_accumulate.launches, fk.launches
+    k4_cal, k1_cal = (launch_counts()[k] for k in ("K4", "K1"))
     check(k4_cal == len(views) and k1_cal == 0,
           f"calibration: K4 launches {k4_cal} != {len(views)} views, "
           f"K1 {k1_cal} != 0")
@@ -2971,11 +2651,10 @@ def phase15_slice3(dev, scene: np.ndarray) -> dict:
     h, w = scene.shape
     cfg = PlanarTrackerConfig()
     torch.cuda.synchronize()
-    fk.launches = 0
-    hk.sht_accumulate.launches = 0
+    reset_launch_counts()
     track = track_planar_sequence(frames, cfg)
     torch.cuda.synchronize()
-    k1_track, k4_track = fk.launches, hk.sht_accumulate.launches
+    k1_track, k4_track = (launch_counts()[k] for k in ("K1", "K4"))
     check(k1_track == cfg.orb.levels * len(frames) and k4_track == 0,
           f"track: K1 launches {k1_track} != {cfg.orb.levels} levels x "
           f"{len(frames)} frames, K4 {k4_track}")
@@ -3607,8 +3286,7 @@ def hog_classifier(dev, scene: np.ndarray) -> dict:
     res["platt"] = platt_vs_scipy(dec.cpu().numpy(), labels_np,
                                   float(a), float(b))
     check(res["platt"]["rel_err"] <= 1e-4, f"platt_fit {res['platt']}")
-    return {"res": res, "x": x, "y": y, "windows": windows, "proj": proj,
-            "proj_x": proj_x, "rbf": models["rbf"][0]}
+    return res
 
 
 def platt_vs_scipy(dec: np.ndarray, y: np.ndarray, a: float, b: float
@@ -3639,36 +3317,16 @@ def platt_vs_scipy(dec: np.ndarray, y: np.ndarray, a: float, b: float
 
 
 def launch_counts() -> dict:
-    """The hand kernels' launch counters."""
-    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
-    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
-    from compv_tpu_torch.ops.kernels import hough_kernel as hk
-    from compv_tpu_torch.ops.kernels import label_stats as ls
-    from compv_tpu_torch.ops.kernels import level_areas as la
-    from compv_tpu_torch.ops.kernels import orient_kernel as ok
+    """The hand kernels' launch counters, by id."""
+    from compv_tpu_torch.ops.kernels import _build
 
-    return {"K1": fk.launches, "K2a": ck.ccl_label.launches,
-            "K2b": ck.ccl_label_seeded.launches,
-            "K3": cpk.compact_rows.launches,
-            "K4": hk.sht_accumulate.launches,
-            "K5": ls.strip_label_counts.launches,
-            "K6": ok.launches, "K7": la.launches}
+    return _build.launch_counts("id")
 
 
 def reset_launch_counts() -> None:
-    from compv_tpu_torch.ops.kernels import ccl_kernel as ck
-    from compv_tpu_torch.ops.kernels import compact_kernel as cpk
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
-    from compv_tpu_torch.ops.kernels import hough_kernel as hk
-    from compv_tpu_torch.ops.kernels import label_stats as ls
-    from compv_tpu_torch.ops.kernels import level_areas as la
-    from compv_tpu_torch.ops.kernels import orient_kernel as ok
+    from compv_tpu_torch.ops.kernels import _build
 
-    fk.launches = ok.launches = la.launches = 0
-    for fn in (ck.ccl_label, ck.ccl_label_seeded, cpk.compact_rows,
-               hk.sht_accumulate, ls.strip_label_counts):
-        fn.launches = 0
+    _build.reset_launch_counts()
 
 
 def phase17_slice4(dev, scene: np.ndarray) -> dict:
@@ -3691,8 +3349,7 @@ def phase17_slice4(dev, scene: np.ndarray) -> dict:
     out["goldens_on_card"] = slice4_goldens(dev)
     out["math"] = slice4_math(dev, scene)
     out["hog_720p"] = hog_card_vs_cpu(dev, scene)
-    cls = hog_classifier(dev, scene)
-    out["classifier"] = cls["res"]
+    out["classifier"] = hog_classifier(dev, scene)
     torch.cuda.synchronize()
     out["hand_kernel_launches"] = launch_counts()
     check(not any(out["hand_kernel_launches"].values()),
@@ -3705,52 +3362,6 @@ def phase17_slice4(dev, scene: np.ndarray) -> dict:
                   "2 of the reference's and labels as the CPU's wherever "
                   "|decision| >= 1e-3, platt_fit within 1e-4 of scipy's "
                   "minimum; no hand kernel on this path"})
-    return {"inputs": inputs, "rows": rows, **cls}
-
-
-def phase18_slice4_times(dev, card: str, s4: dict) -> dict:
-    from compv_tpu_torch.features.hog import HogConfig, hog_descriptor
-    from compv_tpu_torch.image.integral import integral
-    from compv_tpu_torch.math.pca import pca_compute
-    from compv_tpu_torch.ml.knn import knn_build, knn_search
-    from compv_tpu_torch.ml.svm import SvmConfig, svm_decision, svm_train
-
-    times = {}
-
-    # 20 profiled calls a row: a window of the full script can come back
-    # ~22 device events short (seen after phase 16's windows), which is
-    # most of a 10-event row's single call
-    def row(name, fn, reps, calls=20):
-        ms = cuda_ms(fn, reps=reps)
-        times[name] = {"ms": ms, **device_profile(fn, ms, calls)}
-
-    bench_rows = ("rgb24_to_gray", "i420_to_rgb24", "rgb24_to_hsv",
-                  "yuv420p_to_hsv", "split_rgb", "hist_equalize",
-                  "integral_sq", "adaptive_thresh_5x5",
-                  "wolf_binarization_41x41", "morph_erode_3x3",
-                  "morph_close_3x3")
-    for name in bench_rows:
-        fn, args, _ = s4["rows"][name]
-        args = to_dev(args, dev)
-        if name == "integral_sq":    # bench.py's row: both tables
-            row(name, lambda a=args: (integral(a[0], torch.float32),
-                                      fn(*a)), 20)
-        else:
-            row(name, lambda f=fn, a=args: f(*a), 20)
-    gray = torch.from_numpy(s4["inputs"]["gray"]).to(dev)
-    row("hog_8x8_l2hys", lambda: hog_descriptor(gray, HogConfig()), 10)
-    x, y, windows = s4["x"], s4["y"], s4["windows"]
-    row("svm_train_rbf_2048", lambda: svm_train(x, y, SvmConfig()), 3, 3)
-    row("svm_decision_rbf_11475", lambda: svm_decision(s4["rbf"], windows), 5)
-    row("pca_compute_11475x3780_64", lambda: pca_compute(windows, 64), 2, 2)
-    index = knn_build(s4["proj_x"])
-    row("knn_search_11475_k5", lambda: knn_search(index, s4["proj"], 5), 10)
-    emit({"phase": 18, "card": card, **times,
-          "timing": "median of CUDA-event timings after two warm-up calls; "
-                    "busy, idle share and launches by torch.profiler, mean "
-                    "of 20 profiled calls (3 for svm_train, 2 for "
-                    "pca_compute)"})
-    return times
 
 
 # ---------------------------------------------------------------------------
@@ -4004,7 +3615,6 @@ def recording_path(dev, scene: np.ndarray, cfg, workdir: str,
     from compv_tpu_torch.io import VideoWriterRaw, open_video
     from compv_tpu_torch.matchers.bruteforce import knn_match, ratio_test
     from compv_tpu_torch.native_rt import md5_mat
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.profiling import Timer
     from compv_tpu_torch.slam.frontend import match_pair
     from compv_tpu_torch.viz import draw_matches, draw_text
@@ -4028,11 +3638,11 @@ def recording_path(dev, scene: np.ndarray, cfg, workdir: str,
         """match_pair (and K1's launches in it), the matches to draw, the
         canvas."""
         done = []
-        k1 = fk.launches
+        k1 = launch_counts()["K1"]
         with timer.section("match_pair", block_on=done):
             res = match_pair(template, img, cfg)
             done.append(res)
-        k1 = fk.launches - k1
+        k1 = launch_counts()["K1"] - k1
         with timer.section("orb_knn_for_draw", block_on=done):
             r2 = orb(img, cfg.orb)
             m = knn_match(r1.descriptors, r2.descriptors, r1.keypoints.valid,
@@ -4436,7 +4046,6 @@ def rank_phase21(mesh, frames, prob, k_schur, checkpoint):
     import torch.distributed as dist
 
     from compv_tpu_torch.features.orb import OrbConfig
-    from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.parallel import _collectives, sharded
     from compv_tpu_torch.slam import sfm as ts
     from compv_tpu_torch.slam.ba import BAConfig
@@ -4448,7 +4057,7 @@ def rank_phase21(mesh, frames, prob, k_schur, checkpoint):
     def stage(name, fn):
         torch.cuda.synchronize()
         dist.barrier()
-        staged, k1 = _collectives.staged_bytes, fk.launches
+        staged, k1 = _collectives.staged_bytes, launch_counts()["K1"]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -4460,10 +4069,10 @@ def rank_phase21(mesh, frames, prob, k_schur, checkpoint):
         stages[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
                         "event_ms": start.elapsed_time(end),
                         "staged_bytes": _collectives.staged_bytes - staged,
-                        "k1_launches": fk.launches - k1}
+                        "k1_launches": launch_counts()["K1"] - k1}
         return out
 
-    fk.launches = 0
+    reset_launch_counts()
     imgs = torch.from_numpy(frames)
     orb = stage("sharded_orb_detect",
                 lambda: sharded.sharded_orb_detect(imgs, mesh, OrbConfig()))
@@ -4490,7 +4099,8 @@ def rank_phase21(mesh, frames, prob, k_schur, checkpoint):
     return {"backend": dist.get_backend(), "world": dist.get_world_size(),
             "device": torch.cuda.get_device_name(mesh.device),
             "orb": orb, "all_pairs": all_pairs, "ring": ring, "steps": runs,
-            "resumed": resumed, "stages": stages, "k1": fk.launches}
+            "resumed": resumed, "stages": stages,
+            "k1": launch_counts()["K1"]}
 
 
 def phase21_distributed(dev, card: str, scene: np.ndarray, sfm: dict) -> dict:
@@ -5211,25 +4821,37 @@ def trace_probe() -> int:
     emit({"trace_probe": out})
     return 0
 
-def text_kernel_times(package_root: str) -> int:
-    """From the package under ``package_root``: K2a, K2b (mean and per
-    level over the text ladder), K3's wrapper and K5 at the text scene's
-    shapes, K1's two-output entry at level 0 of the 720p scene and K4 at
-    the scene's Canny edge list, by CUDA events, and each one's device time
-    by the profiler."""
-    sys.path.insert(0, package_root)
-    from compv_tpu_torch.device import require_cuda
+
+def kernel_times(dev) -> tuple:
+    """K1-K5 at their paths' shapes, from the wrappers' public entries and
+    twins only, so that ``--package-root`` times a checkout of any version.
+    Each kernel is held to its twin once (exact; K2a also to scipy's
+    partition, K2b to K2a), then timed by CUDA events around back-to-back
+    calls, by the profiler (device time) and against its bound, its twin
+    by CUDA events. K1 also on each of the 720p pair's 8 pyramid levels,
+    each level's bound at or below its device time; K2a also by pass and on
+    noise, full and checkerboard maps; K2b by pass and per ladder level; K4
+    also at find_chessboard_corners' 16,384-slot list and at n_rho 88,118,
+    and one call as one kernel node of a captured CUDA graph. Prints one
+    JSON line; returns (times, bounds) by id, times as (event ms, twin ms,
+    device ms)."""
+    from compv_tpu_torch.calib.checkerboard import CheckerboardConfig
     from compv_tpu_torch.features.canny import CannyConfig, canny
     from compv_tpu_torch.features.mser import MserConfig
+    from compv_tpu_torch.features.orb import PATCH_DIAMETER, OrbConfig
+    from compv_tpu_torch.image.pyramid import pyramid_sizes
+    from compv_tpu_torch.image.scale import scale_bilinear
     from compv_tpu_torch.ops.kernels import ccl_kernel as ck
     from compv_tpu_torch.ops.kernels import compact_kernel as cpk
     from compv_tpu_torch.ops.kernels import fast_kernel as fk
     from compv_tpu_torch.ops.kernels import hough_kernel as hk
     from compv_tpu_torch.ops.kernels import label_stats as ls
 
-    dev = require_cuda()
     scene, text = scenes()
     text_bin = torch.from_numpy((text < 128).astype(np.uint8) * 255).to(dev)
+    fg = text_bin != 0
+    idx = torch.arange(fg.numel(), dtype=torch.int32,
+                       device=dev).reshape(fg.shape)
     labels = ck.ccl_label(text_bin)
     check(np.array_equal(labels.cpu().numpy(),
                          oracle_labels(text_bin.cpu().numpy(), 8)),
@@ -5237,11 +4859,11 @@ def text_kernel_times(package_root: str) -> int:
     for got, want in zip(ls.strip_label_counts(labels, 256),
                          ls.strip_label_counts_ref(labels, 256)):
         check(torch.equal(got, want), "K5 != twin on the text labels")
-    pairs = [(fg, init) for fg, init, _ in ladder(
+    pairs = [(f, init) for f, init, _ in ladder(
         torch.from_numpy(text).to(dev), MserConfig())]
     a, b, counts = run_tables(labels, 128)
-    for fg, init in pairs:
-        check(torch.equal(ck.ccl_label_seeded(fg, init), ck.ccl_label(fg)),
+    for f, init in pairs:
+        check(torch.equal(ck.ccl_label_seeded(f, init), ck.ccl_label(f)),
               "K2b != K2a on a level of the text ladder")
     gray = torch.from_numpy(scene).to(dev)
     raw = fk._strengths_ref(gray, 20, 9)
@@ -5251,11 +4873,85 @@ def text_kernel_times(package_root: str) -> int:
     sht = sht_args(canny(gray, CannyConfig()), 1.0, 1.0)
     check(torch.equal(hk.sht_accumulate(*sht), hk.sht_accumulate_ref(*sht)),
           "K4 != twin on the 720p scene's edge list")
+    k4_nodes = captured_nodes(lambda: hk.sht_accumulate(*sht))
+    check(k4_nodes == [0], "sht_accumulate made other device operations "
+          f"than one kernel: node types {k4_nodes}")
 
-    def seeded_all():
-        for fg, init in pairs:
-            ck.ccl_label_seeded(fg, init)
+    def seeded_all(label):
+        def run():
+            for f, init in pairs:
+                label(f, init)
+        return run
 
+    def by_pass(fn, calls):
+        out = {}
+        for name, us in device_events(fn, calls)[0]:
+            out[name] = out.get(name, 0.0) + us / calls
+        return out
+
+    def twin_k1():
+        s = fk._strengths_ref(gray, 20, 9)
+        return s, fk._nms_ref(s)
+
+    def k1(im=gray):
+        return fk.fast_strengths_and_nms(im, 20, 9)
+
+    n = fg.numel()
+    times = {
+        "K1": (cuda_ms(k1, reps=20, inner=50), cuda_ms(twin_k1, reps=5,
+                                                        inner=5),
+               device_ms(k1)),
+        "K2a": (cuda_ms(lambda: ck.ccl_label(text_bin), reps=20, inner=10),
+                cuda_ms(lambda: ck.label_ref(fg, idx, 8), reps=5),
+                device_ms(lambda: ck.ccl_label(text_bin))),
+        "K2b": (cuda_ms(seeded_all(ck.ccl_label_seeded), reps=20)
+                / len(pairs),
+                cuda_ms(seeded_all(ck.label_ref), reps=3) / len(pairs),
+                device_ms(seeded_all(ck.ccl_label_seeded), 1) / len(pairs)),
+        "K3": (cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192), reps=20,
+                       inner=10),
+               cuda_ms(lambda: cpk.compact_ref(a, b, counts, 8192), reps=20),
+               device_ms(lambda: cpk.compact_rows(a, b, counts, 8192))),
+        "K4": (cuda_ms(lambda: hk.sht_accumulate(*sht), reps=20, inner=10),
+               cuda_ms(lambda: hk.sht_accumulate_ref(*sht), reps=10),
+               device_ms(lambda: hk.sht_accumulate(*sht))),
+        "K5": (cuda_ms(lambda: ls.strip_label_counts(labels, 256), reps=20,
+                       inner=10),
+               cuda_ms(lambda: ls.strip_label_counts_ref(labels, 256),
+                       reps=10),
+               device_ms(lambda: ls.strip_label_counts(labels, 256))),
+    }
+    # K1 on the level images of the pair's first frame, as the ORB loop
+    # makes them
+    cfg = OrbConfig(max_features=2000, levels=8)
+    k1_levels = []
+    for lv, (lh, lw) in enumerate(pyramid_sizes(*gray.shape, cfg.levels,
+                                                cfg.scale_factor)):
+        if lh < PATCH_DIAMETER + 2 or lw < PATCH_DIAMETER + 2:
+            continue
+        im = gray if lv == 0 else scale_bilinear(gray, lh, lw)
+        bnd = k1_bound(im)
+        k1_levels.append({
+            "shape": [lh, lw], "device_us": device_ms(lambda: k1(im)) * 1e3,
+            "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"],
+            "worst_case_bound_us": bnd["worst_ms"] * 1e3})
+    check(all(lv["bound_us"] <= lv["device_us"] for lv in k1_levels),
+          f"a K1 bound above its device time: {k1_levels}")
+    # K4 on the checkerboard's list (Canny at 40 / 100, 16,384 slots), and
+    # rho-tiled: a 2160x3840 map at rho 0.1, 88,118 bins a theta
+    board = torch.from_numpy(render_board(square=80, margin=80,
+                                          angle_deg=12.0)[0]).to(dev)
+    board_args = sht_args(canny(board, CheckerboardConfig().canny), 1.0, 1.0,
+                          16384)
+    rs = np.random.default_rng(9)
+    wide_args = sht_args(torch.from_numpy(
+        ((rs.random((2160, 3840)) < 0.008) * 255).astype(np.uint8)
+    ).to(dev), 1.0, 0.1)
+    wide_n_rho = hk.n_rho_bins(wide_args[4], wide_args[5])
+    wide_bound = bound(3 * 4 * wide_args[0].numel() + 2 * 4 * wide_args[3]
+                       + 4 * wide_args[3] * wide_n_rho,
+                       7 * int(wide_args[2].sum()) * wide_args[3],
+                       FP32_OPS_PER_S)
     # K2a off its path: a small and a large noise map at density one half
     # (near percolation, most unions a pixel), a full map, single pixels
     rs = np.random.default_rng(2)
@@ -5273,35 +4969,81 @@ def text_kernel_times(package_root: str) -> int:
               f"K2a != scipy's partition on {name}")
         k2a_other[name] = device_ms(lambda: ck.ccl_label(t)) * 1e3
 
-    emit({"package_root": os.path.abspath(package_root),
-          "card": card_line(),
-          "K1_device_us": device_ms(
-              lambda: fk.fast_strengths_and_nms(gray, 20, 9)) * 1e3,
-          "K4_device_us": device_ms(lambda: hk.sht_accumulate(*sht)) * 1e3,
-          "K2a_device_us": device_ms(lambda: ck.ccl_label(text_bin)) * 1e3,
-          "K2a_other_device_us": k2a_other,
-          "K2b_device_us": device_ms(seeded_all, 1) / len(pairs) * 1e3,
-          "K5_device_us": device_ms(
-              lambda: ls.strip_label_counts(labels, 256)) * 1e3,
-          "K3_device_us": device_ms(
-              lambda: cpk.compact_rows(a, b, counts, 8192)) * 1e3,
-          "K1_us": cuda_ms(lambda: fk.fast_strengths_and_nms(gray, 20, 9),
-                           reps=20, inner=50) * 1e3,
-          "K4_us": cuda_ms(lambda: hk.sht_accumulate(*sht), reps=20,
-                           inner=10) * 1e3,
-          "K2a_us": cuda_ms(lambda: ck.ccl_label(text_bin), reps=20,
-                            inner=10) * 1e3,
-          "K2b_us": cuda_ms(seeded_all, reps=20) / len(pairs) * 1e3,
-          "K2b_levels": len(pairs),
-          "K2b_per_level_us": [cuda_ms(
-              lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5, inner=10)
-              * 1e3 for f, i in pairs],
-          "K3_us": cuda_ms(lambda: cpk.compact_rows(a, b, counts, 8192),
-                           reps=20, inner=10) * 1e3,
-          "K5_us": cuda_ms(lambda: ls.strip_label_counts(labels, 256),
-                           reps=20, inner=10) * 1e3,
-          "timing": "median of CUDA-event timings after warm-up; device "
-                    "times by the profiler"})
+    # Bytes read and written once, operations at their peak rate. K1: see
+    # k1_bound. K2a / K2b: the mask (and the seed) read, the label map
+    # written; about ten int32 operations a pixel (index, compares, one
+    # find step). K3: the records it copies, in and out, and its counts;
+    # two operations a copied record. K4: the edge list (x, y, weight) and
+    # the trig table read, the accumulator written; a vote (fused
+    # multiply-add, multiply, add, multiply, round, add) is seven fp32
+    # operations, one per valid edge and theta. K5: the label map read,
+    # the strip records written; about four int32 operations a pixel.
+    total = int(cpk.compact_ref(a, b, counts, 8192)[2])
+    slots, valid, n_theta = int(sht[0].numel()), int(sht[2].sum()), sht[3]
+    n_rho = hk.n_rho_bins(sht[4], sht[5])
+    k5_out = ls.strip_label_counts(labels, 256)
+    bounds = {
+        "K1": k1_bound(gray),
+        "K2a": bound(n + 4 * n, 10 * n, INT32_OPS_PER_S),
+        "K2b": bound(n + 4 * n + 4 * n, 10 * n, INT32_OPS_PER_S),
+        "K3": bound(4 * counts.numel() + 2 * 2 * 4 * total + 5, 2 * 2 * total,
+                    INT32_OPS_PER_S),
+        "K4": bound(3 * 4 * slots + 2 * 4 * n_theta + 4 * n_theta * n_rho,
+                    7 * valid * n_theta, FP32_OPS_PER_S),
+        "K5": bound(4 * labels.numel()
+                    + sum(t.numel() * t.element_size() for t in k5_out),
+                    4 * labels.numel(), INT32_OPS_PER_S),
+    }
+    emit({"kernel_times": {
+        "card": card_line(),
+        **{f"{k}_us": v[0] * 1e3 for k, v in times.items()},
+        **{f"{k}_twin_us": v[1] * 1e3 for k, v in times.items()},
+        **{f"{k}_device_us": v[2] * 1e3 for k, v in times.items()},
+        **{f"{k}_bound_us": v["bound_ms"] * 1e3 for k, v in bounds.items()},
+        **{f"{k}_bound_by": v["bound_by"] for k, v in bounds.items()},
+        "K1_worst_case_bound_us": bounds["K1"]["worst_ms"] * 1e3,
+        "K1_levels": k1_levels,
+        "K1_device_us_per_match_pair":
+            2 * sum(lv["device_us"] for lv in k1_levels),
+        "K1_gap_us_per_match_pair":
+            2 * sum(lv["device_us"] - lv["bound_us"] for lv in k1_levels),
+        "K2a_device_us_per_pass": by_pass(lambda: ck.ccl_label(text_bin),
+                                          10),
+        "K2a_other_device_us": k2a_other,
+        "K2b_levels": len(pairs),
+        "K2b_per_level_us": [cuda_ms(
+            lambda f=f, i=i: ck.ccl_label_seeded(f, i), reps=5, inner=10)
+            * 1e3 for f, i in pairs],
+        "K2b_device_us_per_pass": {
+            name: us / len(pairs) for name, us in by_pass(
+                seeded_all(ck.ccl_label_seeded), 1).items()},
+        "K4_at": "720p scene's Canny edge list, 1 deg, rho 1",
+        "K4_edge_slots": slots, "K4_valid_edges": valid,
+        "K4_plan": hk.sht_plan(n_theta, n_rho, dev),
+        "K4_captured_graph_nodes": len(k4_nodes),
+        "K4_board": {"slots": int(board_args[0].numel()),
+                     "valid_edges": int(board_args[2].sum()),
+                     "device_us": device_ms(
+                         lambda: hk.sht_accumulate(*board_args)) * 1e3},
+        "K4_wide": {"n_rho": wide_n_rho, "edges": int(wide_args[2].sum()),
+                    "plan": hk.sht_plan(wide_args[3], wide_n_rho, dev),
+                    "device_us": device_ms(
+                        lambda: hk.sht_accumulate(*wide_args)) * 1e3,
+                    "bound_us": wide_bound["bound_ms"] * 1e3},
+        "K5_at": "text binary's 8-conn labels, rounds 256",
+        "timing": "event: median of CUDA-event timings of calls back to "
+                  "back after warm-up (K2b per launch, mean over the text "
+                  "ladder's changed levels); device: the profiler"}})
+    return times, bounds
+
+
+def text_kernel_times(package_root: str) -> int:
+    """``kernel_times`` from the package under ``package_root``."""
+    sys.path.insert(0, package_root)
+    from compv_tpu_torch.device import require_cuda
+
+    emit({"package_root": os.path.abspath(package_root)})
+    kernel_times(require_cuda())
     return 0
 
 
@@ -5416,33 +5158,30 @@ def main() -> int:
               "sfm_128_480p_schur": sfm_128_run(require_cuda(), False)})
         return 0
     sys.path.insert(0, ROOT)
+    from compv_tpu_torch.ops.kernels import _build
+
     t_start = time.perf_counter()
     dev, card = timed(1, phase1_device_and_build)
     scene, text = scenes()
     err = timed(2, phase2_kernel_vs_twin, dev, scene)
     timed(3, phase3_goldens, dev)
-    cfg, img1, img2, k1_launches = timed(4, phase4_slice, dev, scene)
-    k1_times, k1_bound = timed(5, phase5_times, dev, card, cfg, img1, img2)
-    timed(25, phase25_orient_kernel, dev, card, scene)
+    launches = timed(4, phase4_slice, dev, scene)
+    k6 = timed(25, phase25_orient_kernel, dev, card, scene)
     pairs, labels = timed(6, phase6_ccl_kernels_vs_twins, dev, text)
-    text_bin, img, labels, launches = timed(7, phase7_text_slice, dev, text,
-                                            len(pairs))
-    times, bounds = timed(8, phase8_text_times, card, text_bin, img, labels,
-                          pairs, launches)
-    timed(26, phase26_level_areas, dev, card, text)
+    labels, text_launches = timed(7, phase7_text_slice, dev, text, len(pairs))
+    launches.update(text_launches)
+    k7 = timed(26, phase26_level_areas, dev, card, text)
     k45_err = timed(9, phase9_hough_kernels_vs_twins, dev, scene, text,
                     pairs, labels)
-    gray, edges, board, launches["K4"], launches["K5"] = timed(
-        10, phase10_hough_slice, dev, scene, text)
-    k45_times, k45_bounds = timed(11, phase11_hough_times, card, gray, edges,
-                                  board, labels)
+    launches["K4"], launches["K5"] = timed(10, phase10_hough_slice, dev,
+                                           scene, text)
+    times, bounds = timed("kernel_times", kernel_times, dev)
     timed(12, phase12_sfm_components, dev)
     sfm = timed(13, phase13_sfm_slice, dev)
     timed(14, phase14_sfm_times, dev, card, sfm.pop("sfm_32_480p_run"))
     s3 = timed(15, phase15_slice3, dev, scene)
     timed(16, phase16_slice3_times, card, s3)
-    s4 = timed(17, phase17_slice4, dev, scene)
-    timed(18, phase18_slice4_times, dev, card, s4)
+    timed(17, phase17_slice4, dev, scene)
     tracked = os.path.join(ROOT, "native", "libcompv_native.so")
     tracked_sha = sha256_of(tracked)
     s5 = timed(19, phase19_slice5, dev, scene)
@@ -5453,21 +5192,26 @@ def main() -> int:
     s7 = timed(22, phase22_examples, dev, card)
     s8 = timed(23, phase23_bench, dev, card)
     timed(24, phase24_sweep, dev)
-    times.update(k45_times)
-    bounds.update(k45_bounds)
-    launches["K1"] = k1_launches
-    times["K1"] = k1_times
-    bounds["K1"] = k1_bound
-    errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0, **k45_err}
-    # library_ms: no single PyTorch call computes any of the six functions
-    # (K4's twin is a bin computation plus scatter_add_, K5's a torch.unique
-    # per strip plus a bincount; FAST, the labelers and the ragged copy
-    # have none)
+    # K6 a launch, mean over the 720p scene's 8 levels; K7 a launch, mean
+    # over the text ladder's changed levels
+    for kid, rows in (("K6", k6["levels"]), ("K7", [k7])):
+        mean = {key: statistics.mean(r[key] for r in rows) / 1e3
+                for key in ("event_us", "twin_us", "device_us", "bound_us")}
+        times[kid] = (mean["event_us"], mean["twin_us"], mean["device_us"])
+        bounds[kid] = {"bound_ms": mean["bound_us"],
+                       "bound_by": rows[0]["bound_by"]}
+    errs = {"K1": err, "K2a": 0, "K2b": 0, "K3": 0, **k45_err, "K6": 0,
+            "K7": 0}
+    # library_ms: no single PyTorch call computes any of the eight
+    # functions (K4's twin is a bin computation plus scatter_add_, K5's a
+    # torch.unique per strip plus a bincount; FAST, the labelers, the
+    # ragged copy, the orientation moments and the level areas have none)
     emit({"profiler": PROFILER, "note": "windows that held no "
           "device event were taken again; a fallback is a reading made "
           "without the profiler (CUDA events) or left null"})
     emit({"kernels": [{
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "id": kid, "name": name, "route": "cuda",
+        "source": f"compv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
         "launches": launches[kid], "max_abs_err": errs[kid],
         "ms": times[kid][0], "plain_ms": times[kid][1],
         "device_ms": times[kid][2], "bound_ms": bounds[kid]["bound_ms"],
@@ -5506,7 +5250,7 @@ def main() -> int:
         **({"launches_per_bench_row": {
             name: row["launches"][kid] for name, row in s8["rows"].items()
             if kid in row["launches"]}} if kid != "K5" else {})}
-        for kid, (name, source, replaces) in KERNELS.items()]})
+        for kid, name, source, replaces in _build.KERNELS]})
     emit({"phase_s": PHASE_S,
           "total_s": round(time.perf_counter() - t_start, 3), "card": card})
     emit(card)

@@ -10,6 +10,14 @@ registers, shared memory, spills) is kept beside it as ``.log``. A missing
 one source at once (the ranks of a process group) take turns on a lock file
 beside it (``flock``, released when its holder exits), so one compiles and
 the others load its library.
+
+It also holds what the rest of the port knows of the hand kernels: the table
+``KERNELS`` (one row a counted device kernel), the ``Library`` through which
+a wrapper declares its entry points' C signatures once, ``Entry.launch``,
+the one launch path (the tensor's device, the current stream's handle
+appended, a non-zero return raised, one launch counted), and the counters,
+read by ``launch_counts`` and cleared by ``reset_launch_counts``. A new hand
+kernel is one row of the table.
 """
 from __future__ import annotations
 
@@ -20,8 +28,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
-__all__ = ["CSRC", "BUILD_DIR", "find_nvcc", "library_path", "build", "load"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "LIBRARIES", "Entry", "Kernel",
+           "Library", "build", "find_nvcc", "launch_counts", "library_path",
+           "load", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -78,3 +91,113 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build if needed and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+class Kernel(NamedTuple):
+    """One counted device kernel: its id, the name of the device kernel a
+    counted launch runs (the name the profiler shows), its ``csrc/`` source
+    and the Pallas function it replaces (None where it replaces none)."""
+    id: str
+    name: str
+    source: str
+    replaces: str | None
+
+
+KERNELS = (
+    Kernel("K1", "fast_kernel", "fast_kernel",
+           "compv_tpu/ops/pallas/fast_kernel.py:129"),
+    Kernel("K2a", "label_tiles", "ccl_kernel",
+           "compv_tpu/ops/pallas/ccl_kernel.py:149"),
+    Kernel("K2b", "merge_seeded", "ccl_kernel",
+           "compv_tpu/ops/pallas/ccl_kernel.py:171"),
+    Kernel("K3", "compact", "compact_kernel",
+           "compv_tpu/ops/pallas/compact_kernel.py:47"),
+    Kernel("K4", "sht_accumulate", "hough_kernel",
+           "compv_tpu/ops/pallas/hough_kernel.py:74"),
+    Kernel("K5", "strip_counts", "label_stats",
+           "compv_tpu/ops/pallas/label_stats.py:58"),
+    Kernel("K6", "orb_orient", "orient_kernel", None),
+    Kernel("K7", "level_areas", "level_areas", None),
+)
+
+# launches since the counters were last cleared, by device kernel name
+_COUNTS = dict.fromkeys((k.name for k in KERNELS), 0)
+# each source's Library by name, declared by its wrapper: the module of the
+# source's name in this package
+LIBRARIES = {}
+
+
+def launch_counts(key: str = "name") -> dict:
+    """The hand kernels' launch counters in the table's order, keyed by
+    each row's ``key`` field: the device kernel's name, or ``"id"``."""
+    return {getattr(k, key): _COUNTS[k.name] for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in _COUNTS:
+        _COUNTS[name] = 0
+
+
+class Entry:
+    """One C entry point of a ``Library``. A launch entry (``counts`` names
+    a row of ``KERNELS``) takes the stream's handle last and returns a
+    ``cudaError_t``; any other entry is a query, called as it is."""
+    __slots__ = ("name", "argtypes", "restype", "counts", "fn", "library")
+
+    def __init__(self, library, name, argtypes, restype, counts):
+        self.name, self.argtypes, self.restype = name, argtypes, restype
+        self.counts, self.library, self.fn = counts, library, None
+
+    def __call__(self, *args):
+        if self.fn is None:
+            self.library.load()
+        return self.fn(*args)
+
+    def launch(self, device, *args) -> None:
+        """Run the entry on ``device`` with the current stream's handle
+        appended to ``args``; raise on a non-zero return, else count one
+        launch of its kernel."""
+        if self.fn is None:
+            self.library.load()
+        with torch.cuda.device(device):
+            rc = self.fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")
+        _COUNTS[self.counts] += 1
+
+
+class Library:
+    """The entry points of ``csrc/<source>.cu``, declared once; the library
+    is built and loaded at the first call of any of them, its signatures
+    set, and ``check`` (if given) run once on it."""
+
+    def __init__(self, source: str, check=None):
+        self.source, self.check, self.entries = source, check, []
+        LIBRARIES[source] = self
+
+    def entry(self, name: str, argtypes, restype=ctypes.c_int,
+              counts: str | None = None) -> Entry:
+        """Declare entry ``name``; for a launch, ``counts`` names its
+        kernel and ``argtypes`` end with the stream's ``c_void_p``."""
+        if counts is not None and counts not in _COUNTS:
+            raise ValueError(f"{counts!r} is no kernel of KERNELS")
+        e = Entry(self, name, list(argtypes), restype, counts)
+        self.entries.append(e)
+        return e
+
+    def load(self) -> None:
+        lib = load(self.source)
+        fns = []
+        for e in self.entries:
+            fn = getattr(lib, e.name)
+            fn.argtypes, fn.restype = e.argtypes, e.restype
+            fns.append(fn)
+        for e, fn in zip(self.entries, fns):
+            e.fn = fn
+        if self.check is not None:
+            try:
+                self.check()
+            except BaseException:
+                for e in self.entries:
+                    e.fn = None
+                raise

@@ -35,8 +35,9 @@ only the unions of the tiles' seam pixels in global memory, then points
 every pixel at its root; K2b starts from its seed over the whole map.
 
 Dispatch has no fallback: a CUDA tensor goes to the kernel (built at first
-use) or the call raises; a CPU tensor goes to the twin. ``launches`` on
-each wrapper counts its calls that launched the kernel.
+use) or the call raises; a CPU tensor goes to the twin. K2a's launches are
+counted under ``label_tiles``, K2b's under ``merge_seeded``
+(``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -52,20 +53,13 @@ __all__ = ["ccl_label", "ccl_label_seeded", "label_ref"]
 _SWEEP_CAP = 12      # run-min sweep iterations of the twin's first stage
 _SENT = 1 << 30      # scan sentinel above every offset-inflated key
 
-_lib = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("ccl_kernel")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_ccl_label.argtypes = [p, p, i, i, i, p]
-        lib.compv_ccl_label.restype = i
-        lib.compv_ccl_label_seeded.argtypes = [p, p, p, i, i, i, p]
-        lib.compv_ccl_label_seeded.restype = i
-        _lib = lib
-    return _lib
+_lib = _build.Library("ccl_kernel")
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_label = _lib.entry("compv_ccl_label", [_p, _p, _i, _i, _i, _p],
+                    counts="label_tiles")
+_label_seeded = _lib.entry("compv_ccl_label_seeded",
+                           [_p, _p, _p, _i, _i, _i, _p],
+                           counts="merge_seeded")
 
 
 # --------------------------------------------------------------- the twin
@@ -204,15 +198,6 @@ def _connectivity(connectivity: int) -> int:
     return connectivity
 
 
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-
-
 def ccl_label(binary: torch.Tensor, connectivity: int = 8,
               max_iter: int = 96, jump_every: int = 3, jump_dists: tuple = (),
               *, max_iterations: int = 64) -> torch.Tensor:
@@ -231,12 +216,8 @@ def ccl_label(binary: torch.Tensor, connectivity: int = 8,
     out = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     if h * w == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(fg.device):
-        rc = lib.compv_ccl_label(fg.data_ptr(), out.data_ptr(), h, w,
-                                 connectivity, _stream_ptr(fg.device))
-    _raise_on(rc, "compv_ccl_label")
-    ccl_label.launches += 1
+    _label.launch(fg.device, fg.data_ptr(), out.data_ptr(), h, w,
+                  connectivity)
     return out
 
 
@@ -262,15 +243,6 @@ def ccl_label_seeded(binary: torch.Tensor, init: torch.Tensor,
     out = torch.empty((h, w), dtype=torch.int32, device=fg.device)
     if h * w == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(fg.device):
-        rc = lib.compv_ccl_label_seeded(
-            fg.data_ptr(), init.data_ptr(), out.data_ptr(), h, w,
-            connectivity, _stream_ptr(fg.device))
-    _raise_on(rc, "compv_ccl_label_seeded")
-    ccl_label_seeded.launches += 1
+    _label_seeded.launch(fg.device, fg.data_ptr(), init.data_ptr(),
+                         out.data_ptr(), h, w, connectivity)
     return out
-
-
-ccl_label.launches = 0
-ccl_label_seeded.launches = 0

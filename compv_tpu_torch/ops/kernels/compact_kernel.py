@@ -24,8 +24,8 @@ clamped rows overlap, the later row wins (the TPU kernel's sequential grid
 order).
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
-use) or the call raises; CPU tensors go to the twin. ``compact_rows.launches``
-counts the calls that launched the kernel.
+use) or the call raises; CPU tensors go to the twin. Its launches are
+counted under ``compact`` (``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -37,18 +37,10 @@ from compv_tpu_torch.ops.kernels import _build
 
 __all__ = ["compact_rows", "compact_ref"]
 
-_lib = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("compact_kernel")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_compact_rows.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-        lib.compv_compact_rows.restype = i
-        _lib = lib
-    return _lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_compact = _build.Library("compact_kernel").entry(
+    "compv_compact_rows", [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    counts="compact")
 
 
 def _check(a, b, counts, cap8) -> None:
@@ -130,16 +122,7 @@ def compact_rows(a: torch.Tensor, b: torch.Tensor, counts: torch.Tensor,
         return oa, ob, total, ok
     total = torch.empty((), dtype=torch.int32, device=a.device)
     ok = torch.empty((), dtype=torch.bool, device=a.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(a.device):
-        rc = lib.compv_compact_rows(
-            a.data_ptr(), b.data_ptr(), counts.data_ptr(), oa.data_ptr(),
-            ob.data_ptr(), total.data_ptr(), ok.data_ptr(), h, k, cap8,
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"compv_compact_rows launch failed: cudaError {rc}")
-    compact_rows.launches += 1
+    _compact.launch(a.device, a.data_ptr(), b.data_ptr(), counts.data_ptr(),
+                    oa.data_ptr(), ob.data_ptr(), total.data_ptr(),
+                    ok.data_ptr(), h, k, cap8)
     return oa, ob, total, ok
-
-
-compact_rows.launches = 0

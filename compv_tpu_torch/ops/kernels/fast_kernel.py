@@ -27,8 +27,9 @@ warp rows (64 pixels) in which some interior pixel passes that side's test;
 per-pixel test.
 
 Dispatch has no fallback: a CUDA tensor goes to the kernel (built at first
-use) or the call raises; a CPU tensor goes to the twin. ``launches`` counts
-the kernel's launches, so a run can show that it went through the kernel.
+use) or the call raises; a CPU tensor goes to the twin. Each launch is
+counted under ``fast_kernel`` (``_build.launch_counts``), so a run can show
+that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -60,34 +61,29 @@ def geometry(h: int, w: int) -> tuple[int, int, int, int]:
     return 64, rows, 62, rows - 2
 
 
-# kernel launches since the counter was last set to 0
-launches = 0
+def _check_geometry() -> None:
+    tiles = (ctypes.c_int * 4)()
+    for shape in ((720, 1282), (412, 733), (1, 1), (400, 1000)):
+        _geometry(*shape, tiles)
+        if tuple(tiles) != geometry(*shape):
+            raise RuntimeError(
+                f"fast_kernel.cu tiles {shape} as {tuple(tiles)}, this "
+                f"module says {geometry(*shape)}")
 
-_lib = None
 
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("fast_kernel")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_fast_strengths_nms.argtypes = [p, p, i, i, i, i, i, i, p]
-        lib.compv_fast_strengths_nms.restype = i
-        lib.compv_fast_strengths_and_nms.argtypes = [p, p, p, i, i, i, i, p]
-        lib.compv_fast_strengths_and_nms.restype = i
-        lib.compv_fast_early_out_counts.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.compv_fast_early_out_counts.restype = i
-        lib.compv_fast_geometry.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.compv_fast_geometry.restype = None
-        for shape in ((720, 1282), (412, 733), (1, 1), (400, 1000)):
-            tiles = (i * 4)()
-            lib.compv_fast_geometry(*shape, tiles)
-            if tuple(tiles) != geometry(*shape):
-                raise RuntimeError(
-                    f"fast_kernel.cu tiles {shape} as {tuple(tiles)}, this "
-                    f"module says {geometry(*shape)}")
-        _lib = lib
-    return _lib
+_lib = _build.Library("fast_kernel", check=_check_geometry)
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_strengths_nms = _lib.entry("compv_fast_strengths_nms",
+                            [_p, _p, _i, _i, _i, _i, _i, _i, _p],
+                            counts="fast_kernel")
+_strengths_and_nms = _lib.entry("compv_fast_strengths_and_nms",
+                                [_p, _p, _p, _i, _i, _i, _i, _p],
+                                counts="fast_kernel")
+_early_out_counts = _lib.entry("compv_fast_early_out_counts",
+                               [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+                               counts="fast_kernel")
+_geometry = _lib.entry("compv_fast_geometry", [_i, _i, ctypes.POINTER(_i)],
+                       restype=None)
 
 
 def _interior(h: int, w: int, border: int, device) -> torch.Tensor:
@@ -207,22 +203,12 @@ def _check(img: torch.Tensor, threshold: int, n: int) -> None:
         raise ValueError(f"unsupported device {img.device}")
 
 
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-
-
 def fast_strengths_nms(img: torch.Tensor, threshold: int = 20, n: int = 9,
                        nms: bool = True, interpret: bool = False,
                        as_f32: bool = False) -> torch.Tensor:
     """(H, W) u8 -> (H, W) FAST-n strengths map, with strict 3x3 NMS when
     ``nms``; u8, or f32 when ``as_f32``. K1's signature and output types;
     ``interpret`` (Pallas's interpreter) is accepted and ignored."""
-    global launches
     _check(img, threshold, n)
     if img.device.type == "cpu":
         s = _strengths_ref(img, threshold, n)
@@ -234,13 +220,8 @@ def fast_strengths_nms(img: torch.Tensor, threshold: int = 20, n: int = 9,
                       device=img.device)
     if h * w == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(img.device):
-        rc = lib.compv_fast_strengths_nms(
-            img.data_ptr(), out.data_ptr(), h, w, int(threshold), n, int(nms),
-            int(as_f32), _stream_ptr(img.device))
-    _raise_on(rc, "compv_fast_strengths_nms")
-    launches += 1
+    _strengths_nms.launch(img.device, img.data_ptr(), out.data_ptr(), h, w,
+                          int(threshold), n, int(nms), int(as_f32))
     return out
 
 
@@ -249,7 +230,6 @@ def fast_strengths_and_nms(img: torch.Tensor, threshold: int = 20, n: int = 9
     """(H, W) u8 -> (strengths f32, NMS strengths f32) from one launch: the
     ORB level loop needs the raw map for its sub-pixel fit and the NMS map
     for selection."""
-    global launches
     _check(img, threshold, n)
     if img.device.type == "cpu":
         s = _strengths_ref(img, threshold, n)
@@ -259,13 +239,8 @@ def fast_strengths_and_nms(img: torch.Tensor, threshold: int = 20, n: int = 9
     out = torch.empty((h, w), dtype=torch.float32, device=img.device)
     if h * w == 0:
         return raw, out
-    lib = _kernel_lib()
-    with torch.cuda.device(img.device):
-        rc = lib.compv_fast_strengths_and_nms(
-            img.data_ptr(), raw.data_ptr(), out.data_ptr(), h, w,
-            int(threshold), n, _stream_ptr(img.device))
-    _raise_on(rc, "compv_fast_strengths_and_nms")
-    launches += 1
+    _strengths_and_nms.launch(img.device, img.data_ptr(), raw.data_ptr(),
+                              out.data_ptr(), h, w, int(threshold), n)
     return raw, out
 
 
@@ -276,7 +251,6 @@ def early_out_counts(img: torch.Tensor, threshold: int = 20, n: int = 9
     computed and those whose darker side. On the card the kernel counts
     them itself while it computes both maps (one launch); a CPU tensor goes
     to the model of the kernel's geometry."""
-    global launches
     _check(img, threshold, n)
     if img.device.type == "cpu":
         return _early_out_counts_ref(img, int(threshold))
@@ -286,11 +260,7 @@ def early_out_counts(img: torch.Tensor, threshold: int = 20, n: int = 9
         return counts
     raw = torch.empty((h, w), dtype=torch.float32, device=img.device)
     out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(img.device):
-        rc = lib.compv_fast_early_out_counts(
-            img.data_ptr(), raw.data_ptr(), out.data_ptr(), counts.data_ptr(),
-            h, w, int(threshold), n, _stream_ptr(img.device))
-    _raise_on(rc, "compv_fast_early_out_counts")
-    launches += 1
+    _early_out_counts.launch(img.device, img.data_ptr(), raw.data_ptr(),
+                             out.data_ptr(), counts.data_ptr(), h, w,
+                             int(threshold), n)
     return counts

@@ -35,8 +35,8 @@ thetas and the grid gains a rho-tile dimension, so any ``n_rho`` is taken.
 ``sht_plan`` gives the T, S and rho tiles the kernel takes for a shape.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
-use) or the call raises; CPU tensors go to the twin.
-``sht_accumulate.launches`` counts the calls that launched the kernel.
+use) or the call raises; CPU tensors go to the twin. Its launches are
+counted under ``sht_accumulate`` (``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -51,23 +51,13 @@ from compv_tpu_torch.ops.kernels import _build
 __all__ = ["fma_f32", "n_rho_bins", "rho_bins", "sht_accumulate",
            "sht_accumulate_ref", "sht_plan"]
 
-_lib = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("hough_kernel")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.compv_sht_accumulate.argtypes = [p, p, p, p, p, p, i, i, i, f, f,
-                                             p]
-        lib.compv_sht_accumulate.restype = i
-        lib.compv_sht_smem_optin.argtypes = [i]
-        lib.compv_sht_smem_optin.restype = i
-        lib.compv_sht_plan.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.compv_sht_plan.restype = i
-        _lib = lib
-    return _lib
+_lib = _build.Library("hough_kernel")
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_accumulate = _lib.entry("compv_sht_accumulate",
+                         [_p, _p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _p],
+                         counts="sht_accumulate")
+_smem_optin = _lib.entry("compv_sht_smem_optin", [_i])
+_plan = _lib.entry("compv_sht_plan", [_i, _i, ctypes.POINTER(_i)])
 
 
 def n_rho_bins(rho_max: float, rho_step: float) -> int:
@@ -153,10 +143,9 @@ def sht_plan(n_theta: int, n_rho: int, device) -> tuple[int, int, int]:
     split of the edge list) and the rho tiles (1 where a CTA holds whole
     theta rows) that the kernel takes for an ``(n_theta, n_rho)``
     accumulator on the CUDA ``device``."""
-    lib = _kernel_lib()
     ts = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        rc = lib.compv_sht_plan(n_theta, n_rho, ts)
+        rc = _plan(n_theta, n_rho, ts)
     if rc != 0:
         raise RuntimeError(f"compv_sht_plan failed: cudaError {rc}")
     return ts[0], ts[1], ts[2]
@@ -175,24 +164,14 @@ def sht_accumulate(x, y, w, n_theta: int, rho_max: float, rho_step: float,
         return sht_accumulate_ref(x, y, w, n_theta, rho_max, rho_step,
                                   cos_t, sin_t)
     n_rho = n_rho_bins(rho_max, rho_step)
-    lib = _kernel_lib()
     dev = x.device
     x, y, w = x.contiguous(), y.contiguous(), w.contiguous()
     cos_t, sin_t = cos_t.contiguous(), sin_t.contiguous()
     acc = torch.empty((n_theta, n_rho), dtype=torch.int32, device=dev)
     if n_theta == 0:
         return acc
-    with torch.cuda.device(dev):
-        rc = lib.compv_sht_accumulate(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), cos_t.data_ptr(),
-            sin_t.data_ptr(), acc.data_ptr(), x.numel(), n_theta, n_rho,
-            float(np.float32(rho_max)), float(_reciprocal(rho_step)),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"compv_sht_accumulate launch failed: "
-                           f"cudaError {rc}")
-    sht_accumulate.launches += 1
+    _accumulate.launch(dev, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                       cos_t.data_ptr(), sin_t.data_ptr(), acc.data_ptr(),
+                       x.numel(), n_theta, n_rho, float(np.float32(rho_max)),
+                       float(_reciprocal(rho_step)))
     return acc
-
-
-sht_accumulate.launches = 0

@@ -29,8 +29,8 @@ an H100), the kernel's second form keeps them in a scratch tensor of
 device memory, a slice a strip, so any ``rounds`` is taken too.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
-use) or the call raises; CPU tensors go to the twin.
-``strip_label_counts.launches`` counts the calls that launched the kernel.
+use) or the call raises; CPU tensors go to the twin. Its launches are
+counted under ``strip_counts`` (``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -42,29 +42,19 @@ from compv_tpu_torch.ops.kernels import _build
 
 __all__ = ["kernel_plan", "strip_label_counts", "strip_label_counts_ref"]
 
-_lib = None
 _STATIC_SMEM = 1024   # bound on the kernel's static shared memory, bytes
 
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("label_stats")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_strip_label_counts.argtypes = [p, i, i, i, i, i, i, i, p,
-                                                 p, p, p]
-        lib.compv_strip_label_counts.restype = i
-        lib.compv_strip_label_counts_global.argtypes = [p, i, i, i, i, i, i,
-                                                        i, p, p, p, p, p]
-        lib.compv_strip_label_counts_global.restype = i
-        lib.compv_strip_step.argtypes = []
-        lib.compv_strip_step.restype = i
-        lib.compv_strip_slots.argtypes = []
-        lib.compv_strip_slots.restype = i
-        lib.compv_strip_smem_optin.argtypes = [i]
-        lib.compv_strip_smem_optin.restype = i
-        _lib = lib
-    return _lib
+_lib = _build.Library("label_stats")
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_counts = _lib.entry("compv_strip_label_counts",
+                     [_p, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p],
+                     counts="strip_counts")
+_counts_global = _lib.entry("compv_strip_label_counts_global",
+                            [_p, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p,
+                             _p], counts="strip_counts")
+_step = _lib.entry("compv_strip_step", [])
+_slots = _lib.entry("compv_strip_slots", [])
+_smem_optin = _lib.entry("compv_strip_smem_optin", [_i])
 
 
 def _check(labels, rounds: int, strip_rows: int) -> None:
@@ -137,30 +127,18 @@ def strip_label_counts(labels: torch.Tensor, rounds: int = 256,
     truncated = torch.empty((n_strips,), dtype=torch.int32, device=dev)
     if n_strips == 0 or w == 0:
         return records.zero_(), used.zero_(), truncated.zero_()
-    lib = _kernel_lib()
-    optin = lib.compv_strip_smem_optin(dev.index if dev.index is not None
-                                       else torch.cuda.current_device())
-    cap, buf_keys, smem = kernel_plan(rounds, strip_rows, w,
-                                      lib.compv_strip_step(),
-                                      lib.compv_strip_slots())
+    optin = _smem_optin(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+    cap, buf_keys, smem = kernel_plan(rounds, strip_rows, w, _step(),
+                                      _slots())
     labels = labels.contiguous()
     args = (labels.data_ptr(), h, w, strip_rows, n_strips, rounds, cap,
             buf_keys, records.data_ptr(), used.data_ptr(),
             truncated.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if smem + _STATIC_SMEM <= optin:
-            rc = lib.compv_strip_label_counts(*args, stream)
-        else:
-            scratch = torch.empty((n_strips * (buf_keys + cap + 1),),
-                                  dtype=torch.int64, device=dev)
-            rc = lib.compv_strip_label_counts_global(
-                *args, scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"compv_strip_label_counts launch failed: "
-                           f"cudaError {rc}")
-    strip_label_counts.launches += 1
+    if smem + _STATIC_SMEM <= optin:
+        _counts.launch(dev, *args)
+    else:
+        scratch = torch.empty((n_strips * (buf_keys + cap + 1),),
+                              dtype=torch.int64, device=dev)
+        _counts_global.launch(dev, *args, scratch.data_ptr())
     return records, used, truncated
-
-
-strip_label_counts.launches = 0

@@ -22,8 +22,8 @@ lengths (H * W * ceil(W / 2) >= 2^31), the twin clips runs and sets the
 flag, where the kernel counts every pixel; there the flag can only fall.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
-use) or the call raises; CPU tensors go to the twin. ``launches`` counts
-the calls that launched the kernel.
+use) or the call raises; CPU tensors go to the twin. Its launches are
+counted under ``level_areas`` (``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -41,23 +41,12 @@ _BIG = 1 << 30
 _U32_SENT = 0xFFFFFFFF
 _MAX_PIXELS = 1 << 30   # labels and their roots stay below 2^30
 
-# kernel launches since the counter was last set to 0
-launches = 0
-
-_lib = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("level_areas")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_level_areas.argtypes = [p, i, i, i, p, p, p, p, p]
-        lib.compv_level_areas.restype = i
-        lib.compv_level_areas_scratch.argtypes = [i]
-        lib.compv_level_areas_scratch.restype = i
-        _lib = lib
-    return _lib
+_lib = _build.Library("level_areas")
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_level_areas = _lib.entry("compv_level_areas",
+                          [_p, _i, _i, _i, _p, _p, _p, _p, _p],
+                          counts="level_areas")
+_scratch_size = _lib.entry("compv_level_areas_scratch", [_i])
 
 
 def run_tiers(h: int, w: int, tiers=(112, 320)) -> list:
@@ -129,7 +118,7 @@ def scratch(n: int, device) -> torch.Tensor:
     device = torch.device(device)
     if device.type != "cuda":
         return torch.zeros((0,), dtype=torch.int32, device=device)
-    size = _kernel_lib().compv_level_areas_scratch(n)
+    size = _scratch_size(n)
     return torch.zeros((size,), dtype=torch.int32, device=device)
 
 
@@ -181,7 +170,6 @@ def level_candidates(lbl: torch.Tensor, amin: int, cap: int,
     card three launches, the first ``level_areas``, counting into ``buf``
     (from ``scratch``; made here if None); ``tiers`` are the twin's run
     capacities and the kernel needs none."""
-    global launches
     _check(lbl, amin, cap, root, area, over, buf)
     if lbl.device.type == "cpu":
         r, a, o = _level_candidates_ref(lbl, amin, cap, tiers)
@@ -190,17 +178,11 @@ def level_candidates(lbl: torch.Tensor, amin: int, cap: int,
         over.copy_(o.reshape(over.shape))
         return
     n = lbl.numel()
-    lib = _kernel_lib()
     if buf is None:
         buf = scratch(n, lbl.device)
-    if buf.numel() < lib.compv_level_areas_scratch(n):
+    if buf.numel() < _scratch_size(n):
         raise ValueError(f"scratch: {buf.numel()} entries, "
-                         f"{lib.compv_level_areas_scratch(n)} needed")
-    with torch.cuda.device(lbl.device):
-        rc = lib.compv_level_areas(
-            lbl.data_ptr(), n, amin, cap, buf.data_ptr(), root.data_ptr(),
-            area.data_ptr(), over.data_ptr(),
-            torch.cuda.current_stream(lbl.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"compv_level_areas launch failed: cudaError {rc}")
-    launches += 1
+                         f"{_scratch_size(n)} needed")
+    _level_areas.launch(lbl.device, lbl.data_ptr(), n, amin, cap,
+                        buf.data_ptr(), root.data_ptr(), area.data_ptr(),
+                        over.data_ptr())

@@ -14,8 +14,8 @@ then folded centre, +d, -d), pixels outside the image read as 0, and
 ``atan2f`` of the card's math library, as PyTorch's CUDA ``atan2``.
 
 Dispatch has no fallback: CUDA tensors go to the kernel (built at first
-use) or the call raises; CPU tensors go to the twin. ``launches`` counts
-the kernel's launches.
+use) or the call raises; CPU tensors go to the twin. Its launches are
+counted under ``orb_orient`` (``_build.launch_counts``).
 """
 from __future__ import annotations
 
@@ -36,21 +36,10 @@ HALF_WIDTHS = tuple(int(np.floor(np.sqrt(RADIUS * RADIUS - d * d)))
 # the f32 constant of jnp.rad2deg
 _RAD2DEG = float(np.float32(180 / np.pi))
 
-# kernel launches since the counter was last set to 0
-launches = 0
-
-_lib = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("orient_kernel")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.compv_orb_orient.argtypes = [p, i, i, i, p, p, p, p, i, p]
-        lib.compv_orb_orient.restype = i
-        _lib = lib
-    return _lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_orient = _build.Library("orient_kernel").entry(
+    "compv_orb_orient", [_p, _i, _i, _i, _p, _p, _p, _p, _i, _p],
+    counts="orb_orient")
 
 
 def _m10_map(img: torch.Tensor) -> torch.Tensor:
@@ -144,7 +133,6 @@ def patch_orientation(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     intensity-centroid angles in degrees [0, 360), 0 where not valid. An
     image of a dtype other than u8 and f32 is taken as f32 (the twin's own
     first step). On the card one launch of ``orb_orient``."""
-    global launches
     _check(img, x, y, valid)
     if img.device.type == "cpu":
         return _orientation_ref(img, x, y, valid)
@@ -156,13 +144,7 @@ def patch_orientation(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if k == 0:
         return out
     _check_gather(h, w)
-    lib = _kernel_lib()
-    with torch.cuda.device(img.device):
-        rc = lib.compv_orb_orient(
-            img.data_ptr(), int(img.dtype == torch.float32), h, w,
-            x.data_ptr(), y.data_ptr(), valid.data_ptr(), out.data_ptr(), k,
-            torch.cuda.current_stream(img.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"compv_orb_orient launch failed: cudaError {rc}")
-    launches += 1
+    _orient.launch(img.device, img.data_ptr(), int(img.dtype == torch.float32),
+                   h, w, x.data_ptr(), y.data_ptr(), valid.data_ptr(),
+                   out.data_ptr(), k)
     return out

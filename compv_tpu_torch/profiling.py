@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from compv_tpu_torch.device import require_cuda
+from compv_tpu_torch.ops.kernels import _build
 
 __all__ = ["Timer", "timed", "SpanRecord", "SpanStore", "spans", "span",
            "span_self_ns", "span_totals", "trace", "device_memory_stats",
@@ -270,20 +271,10 @@ _TRACE_IDS = itertools.count()
 
 def hand_kernel_launches() -> Dict[str, int]:
     """The hand kernels' launch counters, by the name of the one device
-    kernel that each counted launch runs (K1, K2a, K2b, K3, K4, K5, ORB's
-    orientation kernel K6 and MSER's ladder level areas K7)."""
-    from compv_tpu_torch.ops.kernels import (ccl_kernel, compact_kernel,
-                                             fast_kernel, hough_kernel,
-                                             label_stats, level_areas,
-                                             orient_kernel)
-    return {"fast_kernel": fast_kernel.launches,
-            "label_tiles": ccl_kernel.ccl_label.launches,
-            "merge_seeded": ccl_kernel.ccl_label_seeded.launches,
-            "compact": compact_kernel.compact_rows.launches,
-            "sht_accumulate": hough_kernel.sht_accumulate.launches,
-            "strip_counts": label_stats.strip_label_counts.launches,
-            "orb_orient": orient_kernel.launches,
-            "level_areas": level_areas.launches}
+    kernel that each counted launch runs (the rows of
+    ``ops/kernels/_build.KERNELS``: K1-K5, ORB's orientation kernel K6 and
+    MSER's ladder level areas K7)."""
+    return _build.launch_counts()
 
 
 _HOST_SYNCS: Dict[str, List[int]] = {}

@@ -23,9 +23,15 @@ import torch
 
 from compv_tpu_torch.features.fast import FastConfig, fast_detect
 from compv_tpu_torch.features.orb import OrbConfig, orb_detect_describe
-from compv_tpu_torch.ops.kernels import fast_kernel
+from compv_tpu_torch.ops.kernels import _build, fast_kernel
 
 pytestmark = pytest.mark.cuda
+
+
+def _launched(name: str) -> int:
+    """Launches so far of the hand kernel ``name`` (its row of
+    ``ops/kernels/_build.KERNELS``)."""
+    return _build.launch_counts()[name]
 
 
 @pytest.fixture(scope="module")
@@ -125,10 +131,10 @@ def test_early_out_counts_equal_the_model(dev):
 
 def test_kernel_counts_its_launches(dev):
     img = torch.zeros((16, 16), dtype=torch.uint8, device=dev)
-    before = fast_kernel.launches
+    before = _launched("fast_kernel")
     fast_kernel.fast_strengths_nms(img)
     fast_kernel.fast_strengths_and_nms(img)
-    assert fast_kernel.launches == before + 2
+    assert _launched("fast_kernel") == before + 2
 
 
 def test_kernel_rejects_non_contiguous(dev):
@@ -219,9 +225,9 @@ def test_orient_kernel_edge_cases(dev, case, dtype):
         valid = torch.zeros_like(valid)
     if case == "int16 image":
         img = (img.to(torch.int16) - 100) * 3
-    before = orient_kernel.launches
+    before = _launched("orb_orient")
     got = orient_kernel.patch_orientation(img, x, y, valid)
-    assert orient_kernel.launches == before + (k > 0)
+    assert _launched("orb_orient") == before + (k > 0)
     assert torch.equal(got, orient_kernel._orientation_ref(img, x, y, valid))
     if case == "all invalid":
         assert not got.any()
@@ -232,13 +238,13 @@ def test_orient_kernel_raises_where_the_twin_raises(dev, shape):
     img = torch.zeros(shape, dtype=torch.uint8, device=dev)
     x = y = torch.full((3,), 2.0, device=dev)
     valid = torch.ones(3, dtype=torch.bool, device=dev)
-    before = orient_kernel.launches
+    before = _launched("orb_orient")
     with pytest.raises(IndexError):
         orient_kernel.patch_orientation(img, x, y, valid)
     with pytest.raises(IndexError):
         orient_kernel._orientation_ref(img.cpu(), x.cpu(), y.cpu(),
                                        valid.cpu())
-    assert orient_kernel.launches == before
+    assert _launched("orb_orient") == before
 
 
 def test_orient_kernel_rejects_what_it_does_not_take(dev):
@@ -250,19 +256,19 @@ def test_orient_kernel_rejects_what_it_does_not_take(dev):
            "device": (img, x.cpu(), y, valid),
            "not contiguous": (img.t(), x, y, valid),
            "x not contiguous": (img, torch.cat([x, x])[::2], y, valid)}
-    before = orient_kernel.launches
+    before = _launched("orb_orient")
     for name, args in bad.items():
         with pytest.raises(ValueError):
             orient_kernel.patch_orientation(*args)
-    assert orient_kernel.launches == before
+    assert _launched("orb_orient") == before
 
 
 def test_orient_kernel_counts_its_launches(dev):
     img, x, y, valid = _orient_inputs(dev, 64, 80, 12, torch.uint8)
-    before = orient_kernel.launches
+    before = _launched("orb_orient")
     for i in range(1, 4):
         orient_kernel.patch_orientation(img, x, y, valid)
-        assert orient_kernel.launches == before + i
+        assert _launched("orb_orient") == before + i
 
 
 # ---------------------------------------------------------------------------
@@ -518,15 +524,15 @@ def test_new_kernels_count_their_launches(dev):
     init = torch.arange(64, dtype=torch.int32, device=dev).reshape(8, 8)
     counts = torch.full((8,), 3, dtype=torch.int32, device=dev)
     table = torch.zeros((8, 8), dtype=torch.int32, device=dev)
-    before = (ccl_kernel.ccl_label.launches,
-              ccl_kernel.ccl_label_seeded.launches,
-              compact_kernel.compact_rows.launches)
+    before = (_launched("label_tiles"),
+              _launched("merge_seeded"),
+              _launched("compact"))
     ccl_kernel.ccl_label(fg)
     ccl_kernel.ccl_label_seeded(fg, init)
     compact_kernel.compact_rows(table, table, counts, 16)
-    assert (ccl_kernel.ccl_label.launches,
-            ccl_kernel.ccl_label_seeded.launches,
-            compact_kernel.compact_rows.launches) == tuple(
+    assert (_launched("label_tiles"),
+            _launched("merge_seeded"),
+            _launched("compact")) == tuple(
                 x + 1 for x in before)
 
 
@@ -635,7 +641,7 @@ def test_sht_kernel_ragged_cases(dev, case):
                                            (1, 88118), (360, 1000003)])
 def test_sht_plan_fits_the_card(dev, n_theta, n_rho):
     t, s, tiles = hough_kernel.sht_plan(n_theta, n_rho, dev)
-    optin = hough_kernel._kernel_lib().compv_sht_smem_optin(0)
+    optin = hough_kernel._smem_optin(0)
     assert t >= 1 and s in (1, 2, 4, 8)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if n_rho * 4 <= optin:
@@ -705,8 +711,7 @@ def test_sht_kernel_equals_twin_past_shared_memory(dev, n, rho_max, rho_step,
     got = _sht(x, y, wt, step, rho_max, rho_step,
                hough_kernel.sht_accumulate)
     torch.cuda.synchronize()
-    assert got.shape[1] * 4 > hough_kernel._kernel_lib(
-        ).compv_sht_smem_optin(0)
+    assert got.shape[1] * 4 > hough_kernel._smem_optin(0)
     assert torch.equal(got, want)
     assert int(got.sum()) == theta_count(step) * int(wt.sum())
 
@@ -806,10 +811,10 @@ def test_strip_counts_kernel_past_shared_memory(dev, rounds, case):
         lbl = label_components(torch.from_numpy(
             (rs.random((40, 8192)) < 0.45).astype(np.uint8)), 8, 1000)
     want = label_stats.strip_label_counts_ref(lbl, rounds, 8)
-    before = label_stats.strip_label_counts.launches
+    before = _launched("strip_counts")
     got = label_stats.strip_label_counts(lbl.to(dev), rounds, 8)
     torch.cuda.synchronize()
-    assert label_stats.strip_label_counts.launches == before + 1
+    assert _launched("strip_counts") == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
@@ -817,12 +822,12 @@ def test_strip_counts_kernel_past_shared_memory(dev, rounds, case):
 def test_hough_kernels_count_their_launches(dev):
     x, y, wt = (t.to(dev) for t in _edge_list(1, 64, 20, 30))
     lbl = torch.zeros((16, 16), dtype=torch.int32, device=dev)
-    before = (hough_kernel.sht_accumulate.launches,
-              label_stats.strip_label_counts.launches)
+    before = (_launched("sht_accumulate"),
+              _launched("strip_counts"))
     _sht(x, y, wt, 1.0, 40.0, 1.0, hough_kernel.sht_accumulate)
     label_stats.strip_label_counts(lbl)
-    assert (hough_kernel.sht_accumulate.launches,
-            label_stats.strip_label_counts.launches) == tuple(
+    assert (_launched("sht_accumulate"),
+            _launched("strip_counts")) == tuple(
                 b + 1 for b in before)
 
 
@@ -933,10 +938,10 @@ def test_sfm_6_frames_on_the_card_matches_cpu(dev):
     cpu_frames = slam_sfm.render_orbit_sequence(6, 120, 160, device="cpu")[0]
     assert np.array_equal(frames, cpu_frames)
     cfg = slam_sfm.SfmConfig(max_obs=4096, max_landmarks=1024)
-    before = fast_kernel.launches
+    before = _launched("fast_kernel")
     ate, res = slam_sfm.sfm_ate(frames, gt, k, cfg, device=dev)
     torch.cuda.synchronize()
-    assert fast_kernel.launches - before == 24
+    assert _launched("fast_kernel") - before == 24
     ate_cpu, res_cpu = slam_sfm.sfm_ate(frames, gt, k, cfg, device="cpu")
     span = float(np.linalg.norm(gt[-1] - gt[0]))
     assert res.num_tracks == res_cpu.num_tracks
@@ -1064,10 +1069,10 @@ def test_track_planar_sequence_launches_k1(dev):
     base = ((base - base.min()) / np.ptp(base) * 255).astype(np.uint8)
     frames = [np.roll(base, s, axis=1) for s in (0, 4, 8)]
     torch.cuda.synchronize()
-    before = fast_kernel.launches
+    before = _launched("fast_kernel")
     res = track_planar_sequence(frames, PlanarTrackerConfig(), device=dev)
     torch.cuda.synchronize()
-    assert fast_kernel.launches - before == 12
+    assert _launched("fast_kernel") - before == 12
     assert all(res.tracked)
     for h, s in zip(res.h_to_first, (0, 4, 8)):
         assert abs(h[0, 2] - s) < 1.5 and abs(h[1, 2]) < 1.5

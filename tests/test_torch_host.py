@@ -393,20 +393,20 @@ class _ShortProfile:
 def test_trace_warns_when_its_window_drops_launches(tmp_path, monkeypatch):
     """On the card, a window holding fewer K1 kernels than K1's counter
     grew in it warns and says so; one holding them all does not."""
-    from compv_tpu_torch.ops.kernels import fast_kernel
+    from compv_tpu_torch.ops.kernels import _build
     monkeypatch.setattr(torch.profiler, "profile", _ShortProfile)
     monkeypatch.setattr(profiling, "require_cuda", lambda: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(profiling, "_first_kernel", lambda: None)
-    monkeypatch.setattr(fast_kernel, "launches", 0)
+    monkeypatch.setitem(_build._COUNTS, "fast_kernel", 0)
     with pytest.warns(RuntimeWarning, match="fast_kernel"):
         with profiling.trace(str(tmp_path)) as prof:
-            fast_kernel.launches += 2       # two launches, one traced
+            _build._COUNTS["fast_kernel"] += 2  # two launches, one traced
     assert prof.shortfall == {"fast_kernel": (2, 1)}
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         with profiling.trace(str(tmp_path)) as prof:
-            fast_kernel.launches += 1
+            _build._COUNTS["fast_kernel"] += 1
     assert prof.shortfall == {}
 
 

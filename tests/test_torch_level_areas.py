@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from compv_tpu_torch.features import mser
 from compv_tpu_torch.features.ccl import extract_runs, label_components
+from compv_tpu_torch.ops.kernels import _build
 from compv_tpu_torch.ops.kernels import level_areas as la
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -245,9 +246,9 @@ def test_model_adds_once_a_warp_on_one_component():
 def test_cpu_tensors_go_to_the_twin_without_a_launch(crop_levels):
     lbl = crop_levels[20]
     amin, cap = _mser_bounds(*lbl.shape)
-    before = la.launches
+    before = _build.launch_counts()
     got = _call(lbl, amin, cap)
-    assert la.launches == before
+    assert _build.launch_counts() == before
     assert torch.equal(got[0], la._level_candidates_ref(lbl, amin, cap)[0])
     assert la.scratch(lbl.numel(), "cpu").numel() == 0
 
@@ -288,10 +289,10 @@ def _rejections():
 @pytest.mark.parametrize("case", list(_rejections()))
 def test_the_wrapper_rejects_what_it_does_not_take(case):
     args = _rejections()[case]
-    before = la.launches
+    before = _build.launch_counts()
     with pytest.raises((ValueError, TypeError)):
         la.level_candidates(*args)
-    assert la.launches == before
+    assert _build.launch_counts() == before
 
 
 def test_the_ladder_asks_for_one_table_a_changed_level(monkeypatch,
@@ -407,16 +408,16 @@ def test_kernel_equals_twin_at_odd_shapes(dev, shape, fill):
 @pytest.mark.cuda
 def test_kernel_counts_its_launches_and_repeats(dev):
     lbl = _labels(torch.from_numpy(_text_crop() < 128).to(dev))
-    before = la.launches
+    before = _build.launch_counts()["level_areas"]
     a = _call(lbl, 1, 1024)
     b = _call(lbl, 1, 1024, la.scratch(lbl.numel(), dev))
-    assert la.launches == before + 2
+    assert _build.launch_counts()["level_areas"] == before + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     small = torch.zeros((8,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         _call(lbl, 1, 1024, small)
-    assert la.launches == before + 2
+    assert _build.launch_counts()["level_areas"] == before + 2
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from compv_tpu_torch.features import orb
+from compv_tpu_torch.ops.kernels import _build
 from compv_tpu_torch.ops.kernels import orient_kernel as ok
 
 R = ok.RADIUS
@@ -174,10 +175,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, err):
         y = y[:-1]
     else:
         img = img.to("meta")
-    before = ok.launches
+    before = _build.launch_counts()
     with pytest.raises(err):
         ok.patch_orientation(img, x, y, valid)
-    assert ok.launches == before
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.int16,
@@ -185,14 +186,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, err):
 def test_wrapper_routes_cpu_tensors_to_the_twin(dtype):
     img, x, y, valid = _args(64, 80, k=12, seed=3)
     img = (img.to(dtype) * 3 - 100) if dtype != torch.uint8 else img
-    before = ok.launches
+    before = _build.launch_counts()
     got = ok.patch_orientation(img, x, y, valid)
     assert got.dtype == torch.float32 and got.shape == x.shape
     assert torch.equal(got, ok._orientation_ref(img, x, y, valid))
     assert torch.equal(orb.patch_orientation(img, x, y, valid), got)
     assert not got[~valid].any()
     assert ((got >= 0) & (got < 360)).all()
-    assert ok.launches == before            # the twin launches nothing
+    assert _build.launch_counts() == before  # the twin launches nothing
     empty = torch.empty(0)
     assert ok.patch_orientation(img, empty, empty,
                                 empty.bool()).shape == (0,)

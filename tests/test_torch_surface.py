@@ -28,6 +28,8 @@ import os
 
 import pytest
 
+from compv_tpu_torch.ops.kernels import _build
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (reference module, name in it) -> the port's name for the same kernel
@@ -194,6 +196,15 @@ def test_signature_exceptions_still_differ():
             f"signature exception")
 
 
+def _defines(where: str, name: str) -> bool:
+    """Whether ``file:line`` of the repository starts the definition of
+    ``name``."""
+    path, line = where.rsplit(":", 1)
+    with open(os.path.join(_ROOT, path)) as f:
+        text = f.read().splitlines()[int(line) - 1]
+    return text.startswith(f"def {name}(")
+
+
 def test_exceptions_and_kernel_entries_are_current():
     assert len(EXCEPTIONS) <= 3
     for (mod, name), why in EXCEPTIONS.items():
@@ -206,10 +217,12 @@ def test_exceptions_and_kernel_entries_are_current():
         port = importlib.import_module(_port_name(mod))
         wrapper = getattr(port, port_name)
         assert callable(wrapper), (mod, port_name)
-        # the wrapper counts its kernel's launches on the card (K1's count
-        # is its module's, shared by its two entries)
-        count = getattr(wrapper, "launches", getattr(port, "launches", None))
-        assert isinstance(count, int), (mod, port_name)
+        # the kernel is a row of the hand kernels' table, whose launches
+        # are counted on the card: the row that replaces this function
+        rows = [k for k in _build.KERNELS if k.replaces
+                and _defines(k.replaces, name)]
+        assert len(rows) == 1, (mod, name)
+        assert rows[0].name in _build.launch_counts(), (mod, name)
 
 
 def test_every_example_program_has_its_port():
